@@ -7,12 +7,15 @@ Phases, in order, each printing one JSON line; any failure raises and the
 script exits non-zero without printing a result:
 
   1 card     the card's name and power limit (nvidia-smi) and torch's name
-  2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc (in parallel)
+  2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc (in parallel);
+             each kernel's registers, shared memory and spills (ptxas -v)
   3 kernels  K1 (rANS encode) and K2 (rANS decode) against their plain
              PyTorch versions on the card, exact integer equality, at the
              shapes of the main path's 8 MB blocks: SEMI quality (A=64),
              SEMI title value planes (A=256), UNIFORM titles (A=128); K2 on
-             right- and left-aligned payloads.  Times by CUDA events.
+             right- and left-aligned payloads.  Times by CUDA events, and
+             K2's time per decode step.  Then K2 alone, correctness only, on
+             a stream whose cum table exceeds K2's shared-memory budget.
   4 semi     a 64 MB SEMI file (variable titles, 8 blocks of 8 MB) through
              DsrcModule(device="cuda"): compress, decompress, byte compare
   5 uniform  the same with a 16 MB fixed-width (UNIFORM) file
@@ -227,6 +230,8 @@ def kernel_checks(device, streams, reps: int):
             line[f"{kname}_ms"], line[f"{kname}_plain_ms"] = ms[kname]
             line[f"{kname}_bound_ms"], line[f"{kname}_bound_by"] = \
                 bounds[kname]
+        line["rans_decode_ns_per_step"] = (
+            ms["rans_decode"][0] * 1e6 / t_steps if timed else None)
         emit(line)
         if name == "semi_qual":
             for kname in ("rans_encode", "rans_decode"):
@@ -236,6 +241,50 @@ def kernel_checks(device, streams, reps: int):
     for kname in records:
         records[kname]["max_abs_err"] = worst[kname]
     return records
+
+
+def oversized_table_check(device) -> int:
+    """K2 against its plain version (and the encoded symbols) on a stream
+    whose cum table (P = 1024 positions, A = 512) is larger than K2's
+    shared-memory budget, so that the kernel walks it in position tiles;
+    right- and left-aligned.  Returns the max abs error; prints one line."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    from dsrc_tpu_torch.parallel import uniform_pipeline as UP
+    rpad, p, nsym, group = 8 * 33, 1024, 512, 8
+    num_rec = rpad - 5
+    rng = np.random.default_rng(11)
+    mat = np.minimum(rng.geometric(0.02, (rpad, p)) - 1, nsym - 1)
+    mat = torch.from_numpy(mat.astype(np.int32)).to(device)
+    freq, cum, active, table = UP.positional_models(mat, num_rec, nsym,
+                                                    group)
+    payload, nwords, states = RK.rans_encode_from_freqs(freq, cum, active)
+    cumrow = cum_from_freqs(table).contiguous()
+    _ne, stride, tile_rows = RK.dec_layout(nsym, p)
+    line = {"phase": "kernels", "stream": "oversized_table", "T": p * group,
+            "L": payload.shape[0], "A": nsym, "P": p,
+            "table_bytes": cumrow.numel() * 4,
+            "smem_budget_bytes": RK.DEC_SMEM_BUDGET,
+            "tile_rows": tile_rows, "row_stride": stride}
+    worst = 0
+    for align, pl in (("right", payload),
+                      ("left", _left_aligned(payload, nwords, states))):
+        wptr = UP.start_words(pl, nwords, align == "left")
+        args = (pl, states, wptr, cumrow, num_rec, group)
+        dec = RK.rans_decode(*args)
+        plain = RK.rans_decode_plain(*args)
+        e = int((dec.to(torch.int64) - plain.to(torch.int64)).abs().max())
+        if tile_rows >= p or e or not torch.equal(dec[:num_rec],
+                                                  mat[:num_rec]):
+            raise AssertionError(f"K2 ({align}-aligned) on the oversized "
+                                 f"table: max abs err {e}, tile_rows "
+                                 f"{tile_rows} of {p}")
+        line[f"k2_{align}_max_abs_err"] = e
+        worst = max(worst, e)
+    emit(line)
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -364,10 +413,13 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.load_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": list(cuda_build.SOURCES)})
+          "sources": list(cuda_build.SOURCES),
+          "ptxas": cuda_build.build_usage()})
 
     streams = block_streams(device, (8 * MB) // 250, (8 * MB) // 250)
     records = kernel_checks(device, streams, reps=50)
+    records["rans_decode"]["max_abs_err"] = max(
+        records["rans_decode"]["max_abs_err"], oversized_table_check(device))
 
     launches = {"rans_encode": 0, "rans_decode": 0}
     # a little under 8 and 2 whole 8 MB blocks: the chunker cuts each block

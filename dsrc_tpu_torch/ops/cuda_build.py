@@ -6,7 +6,9 @@ a build takes seconds.  Libraries are built at first use into
 build/dsrc_tpu_torch/ beside the package (a directory .gitignore lists),
 named by a hash of the source and the flags, so a changed source is never
 served by a stale library.  Sources are compiled in parallel: one nvcc per
-file, all started together.
+file, all started together.  nvcc runs with -Xptxas -v and its log is
+kept beside each library (`.log`): ptxas_usage() reads each kernel's
+registers, shared memory and spills from it.
 
 The build needs nvcc (CUDA_HOME/bin, /usr/local/cuda/bin or PATH); a
 missing compiler or a failed build raises.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dsrc_tpu_torch")
 SOURCES = ("rans_enc", "rans_dec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -71,6 +74,8 @@ def build(names: Iterable[str] = SOURCES) -> None:
             errors.append(f"{n}.cu: nvcc exit {proc.returncode}\n"
                           + log.decode(errors="replace"))
             continue
+        with open(out + ".log", "wb") as f:
+            f.write(log)
         os.replace(tmp, out)
     if errors:
         raise DsrcException("CUDA kernel build failed:\n" + "\n".join(errors))
@@ -94,3 +99,65 @@ def load_all() -> None:
         build(SOURCES)
     for n in SOURCES:
         load(n)
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def kernel_name(mangled: str) -> str:
+    """'_ZN44_GLOBAL__N__7ef3696d_11_rans_dec_cu_8f53b51718rans_decode_kernel
+    ILi2EEEv...' -> 'rans_decode_kernel<2>': the last length-prefixed name
+    of the nested name, and its int template argument ('Lin1E' is -1)."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), mangled
+    while True:
+        d = re.match(r"\d+", mangled[pos:])
+        if not d:
+            break
+        pos += d.end()
+        name = mangled[pos:pos + int(d.group())]
+        pos += int(d.group())
+    t = re.match(r"ILi(n?)(\d+)E", mangled[pos:])
+    if t:
+        name += f"<{'-' if t.group(1) else ''}{t.group(2)}>"
+    return name
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, static shared memory and spill bytes of every kernel in
+    an nvcc -Xptxas -v log, by kernel name."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(kernel_name(m.group(1)), {
+                "registers": 0, "smem_bytes": 0, "spill_stores": 0,
+                "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = _SMEM.search(line)
+            cur["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
+def build_usage(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
+    """ptxas_usage of each built source's kept log."""
+    usage = {}
+    for n in names:
+        with open(_lib_path(n) + ".log", encoding="utf-8",
+                  errors="replace") as f:
+            usage[n] = ptxas_usage(f.read())
+    return usage

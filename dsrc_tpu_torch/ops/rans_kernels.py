@@ -80,7 +80,7 @@ _SIGNATURES = {
     "dsrc_rans_encode": ("rans_enc", (_P, _P, _P, _I, _I, _I, _P, _P, _P,
                                       _I, _P)),
     "dsrc_rans_decode": ("rans_dec", (_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _P, _I, _P)),
+                                      _I, _I, _I, _I, _P, _I, _P)),
 }
 
 
@@ -190,6 +190,43 @@ def _top_step(nsym: int) -> int:
     return 1 << ((nsym - 1).bit_length() - 1) if nsym > 1 else 0
 
 
+# K2's shared memory for the cum table, per block (the C entry point opts
+# in above the default 48 KB)
+DEC_SMEM_BUDGET = 64 * 1024
+_INT32_MAX = 2**31 - 1
+
+
+def dec_layout(nsym: int, p: int,
+               budget: int = DEC_SMEM_BUDGET) -> Tuple[int, int, int]:
+    """K2's shared-memory layout: (ne, stride, tile_rows).
+
+    Each of a warp's 32 threads compares ne entries of a row with the slot
+    (ceil((nsym-1)/32), rounded up to a power of two up to 16); a row holds
+    cum[0..nsym] padded to stride = max(nsym+1, 32*ne+1) ints; a tile holds
+    tile_rows positions, as many as the budget takes (at least one; a
+    row beyond the card's shared memory fails the launch, which raises)."""
+    e = -(-(nsym - 1) // 32)
+    ne = e if e <= 2 or e > 16 else 1 << (e - 1).bit_length()
+    stride = max(nsym + 1, 32 * ne + 1)
+    return ne, stride, max(1, min(p, budget // (4 * stride)))
+
+
+def count_search_plain(cum: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """K2's symbol rule in plain PyTorch: on rows padded as dec_layout lays
+    them out, count the entries 1 .. 32*ne that are <= slot and take
+    min(count, nsym-1).  cum [P, nsym+1], slot [..., P] in [0, 2^14) ->
+    s [..., P] int64.  Equals the binary search of rans_decode_plain on
+    non-decreasing rows."""
+    p, nsym = cum.shape[0], cum.shape[1] - 1
+    ne, stride, _ = dec_layout(nsym, p)
+    rows = torch.full((p, stride), _INT32_MAX, dtype=torch.int64,
+                      device=cum.device)
+    rows[:, :nsym + 1] = cum.to(torch.int64)
+    keys = rows[:, 1:1 + 32 * ne]
+    count = (keys <= slot.to(torch.int64)[..., None]).sum(-1)
+    return torch.clamp(count, max=nsym - 1)
+
+
 def rans_decode_plain(payload: torch.Tensor, states: torch.Tensor,
                       wptr: torch.Tensor, cum: torch.Tensor, num_rec: int,
                       group: int) -> torch.Tensor:
@@ -264,10 +301,12 @@ def rans_decode(payload: torch.Tensor, states: torch.Tensor,
     out = torch.empty((lanes * group, p), dtype=torch.int32, device=dev)
     if lanes == 0 or p == 0:
         return out
+    ne, stride, tile_rows = dec_layout(nsym, p)
     rc = _entry("dsrc_rans_decode")(
-        payload.data_ptr(), 2 * payload.shape[1], states.data_ptr(),
-        wptr.data_ptr(), cum.data_ptr(), p, nsym, _top_step(nsym), group,
-        lanes, int(num_rec), out.data_ptr(), dev.index or 0, _stream(dev))
+        payload.data_ptr(), payload.shape[1], states.data_ptr(),
+        wptr.data_ptr(), cum.data_ptr(), p, nsym, ne, stride, tile_rows,
+        group, lanes, max(0, min(int(num_rec), lanes * group)),
+        out.data_ptr(), dev.index or 0, _stream(dev))
     if rc != 0:
         raise DsrcException(f"rans_decode kernel launch failed: CUDA error "
                             f"{rc}")
