@@ -13,9 +13,12 @@ script exits non-zero without printing a result:
              PyTorch versions on the card, exact integer equality, at the
              shapes of the main path's 8 MB blocks: SEMI quality (A=64),
              SEMI title value planes (A=256), UNIFORM titles (A=128); K2 on
-             right- and left-aligned payloads.  Times by CUDA events, and
-             K2's time per decode step.  Then K2 alone, correctness only, on
-             a stream whose cum table exceeds K2's shared-memory budget.
+             right- and left-aligned payloads.  Times by CUDA events: a
+             call as the host issues them (`*_ms`, and per step) and the
+             device's work alone (`*_device_ms`).  Then, correctness
+             only, K1 on a stream that uses every freq in [1, 2^14), and
+             K2 on a stream whose cum table exceeds its shared-memory
+             budget.
   4 semi     a 64 MB SEMI file (variable titles, 8 blocks of 8 MB) through
              DsrcModule(device="cuda"): compress, decompress, byte compare
   5 uniform  the same with a 16 MB fixed-width (UNIFORM) file
@@ -23,7 +26,8 @@ script exits non-zero without printing a result:
              byte-exactly on the card, and compressing their inputs on the
              card writes the golden archives' exact bytes
   7 profile  the SEMI round trip again under torch.profiler: the device's
-             busy share of the wall time and its time by kernel
+             busy share of the wall time, its time by kernel, and K1's and
+             K2's device time
 
 Phases 4 and 5 are the main path: each sets the launch counts to 0, drives
 the path and reads the counts, and fails when a kernel was not launched.
@@ -71,7 +75,9 @@ def card_info() -> str:
 
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn on the card: CUDA events around
-    reps calls, after one warm-up call."""
+    reps calls, after one warm-up call.  Where a call's host work (Python,
+    allocation, launch) is longer than its device work, this is the host's
+    rate of issue; time_device_ms leaves the host out."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -83,6 +89,33 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_device_ms(fn, reps: int):
+    """Mean milliseconds of the device's work per call of fn: CUDA events
+    around reps calls that the host queues while the card spins
+    (torch.cuda._sleep), after one warm-up call.  The spin starts at about
+    20 ms and doubles until the start event was still pending when the
+    host had queued the last call, so that no gap between calls is timed;
+    None if 6 tries were not enough."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 40_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -214,24 +247,26 @@ def kernel_checks(device, streams, reps: int):
         if timed:
             wptr_l = UP.start_words(pl_left, nwords, True)
             dargs = (pl_left, states, wptr_l, cumrow, num_rec, group)
-            ms = {
+            calls = {
                 "rans_encode": (
-                    time_ms(lambda: RK.rans_encode_from_freqs(
-                        freq, cum, active), reps),
-                    time_ms(lambda: RK.rans_encode_plain(
-                        freq, cum, active), 2)),
-                "rans_decode": (
-                    time_ms(lambda: RK.rans_decode(*dargs), reps),
-                    time_ms(lambda: RK.rans_decode_plain(*dargs), 2)),
+                    lambda: RK.rans_encode_from_freqs(freq, cum, active),
+                    lambda: RK.rans_encode_plain(freq, cum, active)),
+                "rans_decode": (lambda: RK.rans_decode(*dargs),
+                                lambda: RK.rans_decode_plain(*dargs)),
             }
+            ms = {k: (time_ms(fn, reps), time_ms(plain, 2),
+                      time_device_ms(fn, reps))
+                  for k, (fn, plain) in calls.items()}
         else:
-            ms = {k: (None, None) for k in bounds}
+            ms = {k: (None, None, None) for k in bounds}
         for kname in ("rans_encode", "rans_decode"):
-            line[f"{kname}_ms"], line[f"{kname}_plain_ms"] = ms[kname]
+            (line[f"{kname}_ms"], line[f"{kname}_plain_ms"],
+             line[f"{kname}_device_ms"]) = ms[kname]
             line[f"{kname}_bound_ms"], line[f"{kname}_bound_by"] = \
                 bounds[kname]
-        line["rans_decode_ns_per_step"] = (
-            ms["rans_decode"][0] * 1e6 / t_steps if timed else None)
+        for kname in ("rans_encode", "rans_decode"):
+            line[f"{kname}_ns_per_step"] = (
+                ms[kname][0] * 1e6 / t_steps if timed else None)
         emit(line)
         if name == "semi_qual":
             for kname in ("rans_encode", "rans_decode"):
@@ -241,6 +276,42 @@ def kernel_checks(device, streams, reps: int):
     for kname in records:
         records[kname]["max_abs_err"] = worst[kname]
     return records
+
+
+def all_freq_check(device) -> int:
+    """K1 against its plain version, correctness only, on a stream whose
+    active steps use every freq in [1, 2^14) (T = 640 steps of 33 lanes,
+    shuffled), with random cum in [0, 2^14 - f], a lane that is never
+    active, lanes with inactive tails, and unused freqs where inactive.
+    Returns the max abs error; prints one line."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import M
+    t_steps, lanes = 640, 33
+    rng = np.random.default_rng(12)
+    active = np.ones((t_steps, lanes), bool)
+    active[:, 7] = False                          # a lane that emits nothing
+    active[600:, 20:] = False                     # inactive tails
+    n_act = int(active.sum())
+    freq = rng.integers(0, 1 << 15, (t_steps, lanes))   # unused where inactive
+    freq[active] = rng.permutation(np.concatenate(
+        [np.arange(1, M), rng.integers(1, M, n_act - M + 1)]))
+    cum = (rng.random((t_steps, lanes)) * (M - freq + 1)).astype(np.int64)
+    freq, cum, active = (torch.from_numpy(a).to(device) for a in (
+        freq.astype(np.int32), cum.astype(np.int32), active))
+    got = RK.rans_encode_from_freqs(freq, cum, active)
+    ref = RK.rans_encode_plain(freq, cum, active)
+    e = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            for a, b in zip(got, ref))
+    n_freqs = torch.unique(freq[active]).numel()
+    if e or n_freqs != M - 1 or int(got[1][7]) != 0:
+        raise AssertionError(f"K1 on the all-freq stream: max abs err {e}, "
+                             f"{n_freqs} distinct active freqs")
+    emit({"phase": "kernels", "stream": "all_freqs", "T": t_steps,
+          "L": lanes, "distinct_active_freqs": n_freqs,
+          "k1_max_abs_err": e})
+    return e
 
 
 def oversized_table_check(device) -> int:
@@ -367,11 +438,14 @@ def profile_round_trip(device, data: bytes) -> dict:
         end = max(end, t)
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (t - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ours = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / 1e3
+            for k in ("rans_encode", "rans_decode")}
     return {"phase": "profile", "wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "device_events": len(dev),
-            "top_device_ms": {k: v / 1e3 for k, v in top}}
+            "top_device_ms": {k: v / 1e3 for k, v in top},
+            "kernel_device_ms": ours}
 
 
 def golden(device) -> dict:
@@ -418,6 +492,8 @@ def main() -> int:
 
     streams = block_streams(device, (8 * MB) // 250, (8 * MB) // 250)
     records = kernel_checks(device, streams, reps=50)
+    records["rans_encode"]["max_abs_err"] = max(
+        records["rans_encode"]["max_abs_err"], all_freq_check(device))
     records["rans_decode"]["max_abs_err"] = max(
         records["rans_decode"]["max_abs_err"], oversized_table_check(device))
 

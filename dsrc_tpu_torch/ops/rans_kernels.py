@@ -17,6 +17,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Tuple
 
@@ -84,9 +85,10 @@ _SIGNATURES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(fn_name: str):
     """The typed ctypes function of a kernel's C entry point (the library
-    is built at first use)."""
+    is built at first use; the function is made once)."""
     source, argtypes = _SIGNATURES[fn_name]
     fn = getattr(cuda_build.load(source), fn_name)
     fn.argtypes = argtypes
@@ -137,6 +139,31 @@ def rans_encode_plain(freq: torch.Tensor, cum: torch.Tensor,
     return _u32_to_i32(pairs).contiguous(), b.to(torch.int32), _u32_to_i32(x)
 
 
+def _mulhi(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """High 32 bits of the u32 product x * m (int64 values in [0, 2^32)),
+    in 16-bit halves so that no int64 product overflows."""
+    return ((x >> 16) * m + (((x & 0xFFFF) * m) >> 16)) >> 16
+
+
+def enc_recip(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's reciprocal of a divisor f in [1, 2^14] (int64): (m, l) with
+    l = ceil(log2 f) and the Granlund-Montgomery magic number
+    m = floor(2^32 (2^l - f) / f) + 1 < 2^32."""
+    l = ((f - 1)[..., None] >> torch.arange(15, device=f.device)).gt(0) \
+        .sum(-1)
+    return (((1 << l) - f) << 32) // f + 1, l
+
+
+def recip_divmod_plain(x: torch.Tensor, f: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's divide: (x // f, x % f) for u32 x (int64 values in [0, 2^32))
+    and f in [1, 2^14], as (x + mulhi(x, m)) >> l with the sum in 33 bits
+    and x - q f; exact for every such x and f."""
+    m, l = enc_recip(f)
+    q = (x + _mulhi(x, m)) >> l
+    return q, x - q * f
+
+
 def rans_encode_from_freqs(freq: torch.Tensor, cum: torch.Tensor,
                            active: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -164,7 +191,8 @@ def rans_encode_from_freqs(freq: torch.Tensor, cum: torch.Tensor,
         raise DsrcException(f"rans_encode: unsupported device {dev}")
     t_steps, lanes = freq.shape
     wp = payload_pairs(t_steps)
-    payload = torch.zeros((lanes, wp), dtype=torch.int32, device=dev)
+    # the kernel writes every pair, zeros left of a lane's words
+    payload = torch.empty((lanes, wp), dtype=torch.int32, device=dev)
     nwords = torch.empty(lanes, dtype=torch.int32, device=dev)
     states = torch.empty(lanes, dtype=torch.int32, device=dev)
     if lanes == 0:

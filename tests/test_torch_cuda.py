@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_enc_inputs import M, enc_models, every_freq_models
+
 pytestmark = pytest.mark.cuda
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -22,15 +24,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda", 0)
-
-
-def _models(seed, t_steps, lanes):
-    rng = np.random.default_rng(seed)
-    freq = rng.integers(1, 4096, (t_steps, lanes)).astype(np.int32)
-    cum = (rng.random((t_steps, lanes)) * ((1 << 14) - freq)).astype(np.int32)
-    lengths = rng.integers(0, t_steps + 1, lanes)
-    active = np.arange(t_steps)[:, None] < lengths[None, :]
-    return [torch.from_numpy(a) for a in (freq, cum, active)]
 
 
 @pytest.mark.parametrize("nsym,group", [(64, 8), (128, 8), (256, 64),
@@ -69,7 +62,7 @@ def test_kernels_equal_plain_versions(cuda, nsym, group):
 def test_random_models_and_corrupt_streams(cuda):
     from dsrc_tpu_torch.ops import rans_kernels as RK
     from dsrc_tpu_torch.ops.rans import cum_from_freqs
-    freq, cum, active = (t.to(cuda) for t in _models(3, 300, 700))
+    freq, cum, active = (t.to(cuda) for t in enc_models(3, 300, 700))
     for a, b in zip(RK.rans_encode_from_freqs(freq, cum, active),
                     RK.rans_encode_plain(freq, cum, active)):
         assert torch.equal(a, b)
@@ -88,6 +81,34 @@ def test_random_models_and_corrupt_streams(cuda):
         out = RK.rans_decode(*args)
         torch.cuda.synchronize()
         assert torch.equal(out, RK.rans_decode_plain(*args))
+
+
+def _encode_equals_plain(dev, freq, cum, active):
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    freq, cum, active = (t.to(dev) for t in (freq, cum, active))
+    got = RK.rans_encode_from_freqs(freq, cum, active)
+    torch.cuda.synchronize()
+    ref = RK.rans_encode_plain(freq, cum, active)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("t_steps", [1, 45, 800])
+@pytest.mark.parametrize("lanes", [1, 33, 532, 4256])
+def test_encode_shapes(cuda, t_steps, lanes):
+    """T = 1, T not a multiple of K1's chunk, and the quality stream's T;
+    one lane, a partial block, the value planes' and the quality lanes."""
+    _, nwords, _ = _encode_equals_plain(
+        cuda, *enc_models(t_steps * 7 + lanes, t_steps, lanes, max_freq=M))
+    if lanes > 3:
+        assert int(nwords[1]) == 0 and int(nwords[2]) == 0
+
+
+def test_encode_every_freq(cuda):
+    """Every freq in [1, 2^14) on an active step (shuffled over 640 steps
+    of 33 lanes), with cum up to 2^14 - f."""
+    _encode_equals_plain(cuda, *every_freq_models(21))
 
 
 def _stream(dev, rpad, p, nsym, group, num_rec, seed):

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing dsrc_tpu_torch, every one of its
-modules and chip_smoke.py loads neither JAX nor anything of dsrc_tpu.
+modules, chip_smoke.py and k1_variants.py loads neither JAX nor anything
+of dsrc_tpu.
 
 Checked in a subprocess, because this test process has JAX loaded already
 (tests/conftest.py)."""
@@ -15,8 +16,9 @@ import dsrc_tpu_torch
 for m in pkgutil.walk_packages(dsrc_tpu_torch.__path__, "dsrc_tpu_torch."):
     if not m.name.endswith("__main__"):          # __main__ runs the CLI
         importlib.import_module(m.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("chip_smoke", "k1_variants"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dsrc_tpu_torch.api import DsrcModule
 DsrcModule(device="cpu")
 bad = sorted(n for n in sys.modules
