@@ -19,21 +19,32 @@ script exits non-zero without printing a result:
              only, K1 on a stream that uses every freq in [1, 2^14), and
              K2 on a stream whose cum table exceeds its shared-memory
              budget.
+             GENERIC (-m1 settings): K1 and K3 (context-model decode)
+             against their plain versions on the quality (K3 mode 2), DNA
+             pair (mode 0) and title text (mode 1) streams of one 8 MB
+             block, K3 on every band; A19 (K4, served by K2 at P = 1) on a
+             19-symbol stream.  Then K3's and K1's times per band and per
+             stream at the quality and DNA shapes of a 64 MB block.
   4 semi     a 64 MB SEMI file (variable titles, 8 blocks of 8 MB) through
              DsrcModule(device="cuda"): compress, decompress, byte compare
   5 uniform  the same with a 16 MB fixed-width (UNIFORM) file
-  6 golden   tests/data's golden UNIFORM and SEMI archives decode
-             byte-exactly on the card, and compressing their inputs on the
-             card writes the golden archives' exact bytes
-  7 profile  the SEMI round trip again under torch.profiler: the device's
-             busy share of the wall time, its time by kernel, and K1's and
-             K2's device time
+  6 generic  the -m1 preset (-d2 -q2, 64 MB blocks) on a 128 MB realistic
+             file through DsrcModule(device="cuda"); the 8 MB -m1 archive on
+             the card equal to the port's archive on the CPU; 8 MB round
+             trips at -d0 -q0 on variable-length reads, -l -q2 on 4-level
+             quality, -c, and DNA with more than 8 symbols (A19)
+  7 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
+             decode byte-exactly on the card, and compressing their inputs
+             on the card writes the golden archives' exact bytes
+  8 profile  the SEMI round trip and one 64 MB -m1 block's round trip again
+             under torch.profiler: the device's busy share of the wall
+             time, its time by kernel, and each kernel's device time
 
-Phases 4 and 5 are the main path: each sets the launch counts to 0, drives
-the path and reads the counts, and fails when a kernel was not launched.
-The lines before the last are the nvidia-smi line and the kernels line; the
-last line is {"ok": true, "device": {...}}.  Needs one CUDA card and nvcc;
-exits non-zero without one.
+Phases 4, 5 and 6 are the main paths: each run sets the launch counts to 0,
+drives the path and reads the counts, and fails when a kernel of that path
+was not launched.  The lines before the last are the nvidia-smi line and
+the kernels line; the last line is {"ok": true, "device": {...}}.  Needs
+one CUDA card and nvcc; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -359,12 +370,410 @@ def oversized_table_check(device) -> int:
 
 
 # --------------------------------------------------------------------------
+# Phase 3, GENERIC: K1 and K3 on the context-model streams, A19 through K2
+# --------------------------------------------------------------------------
+
+def m1_params(block_bytes: int, **kw):
+    """The -m1 preset (-d2 -q2) at a given block size, with extra
+    settings."""
+    from dsrc_tpu_torch.config import InputParameters
+    p = InputParameters.preset(1)
+    p.fastq_block_size_bytes = block_bytes
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p
+
+
+def realistic_of_size(nbytes: int, seed: int, platform: str = "hiseq"):
+    """make_fastq_realistic (read length 100) cut at the last whole record
+    within nbytes."""
+    import numpy as np
+    from dsrc_tpu_torch.utils.synth import make_fastq_realistic
+    data = make_fastq_realistic(nbytes // 250, 100, platform=platform,
+                                seed=seed)
+    ends = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)[3::4]
+    return data[:int(ends[np.searchsorted(ends, nbytes) - 1]) + 1]
+
+
+def ctx_streams(device, block: bytes, params):
+    """The context-model streams of one GENERIC block as the -m1 path codes
+    them: quality (CTX, K3 mode 2), DNA base pairs (CTX4P, mode 0) and the
+    block's titles as one text field (the tag text stream, mode 1).  Each
+    is a dict: name, mode, num_ctx, nsym, edges, lanes/active/ctx [T, L]
+    (the encoder's view), aux [L, T] (K3's), n."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.api import analyze_first_block
+    from dsrc_tpu_torch.models import block as B
+    from dsrc_tpu_torch.models import dna as DNA
+    from dsrc_tpu_torch.models import quality as Q
+    from dsrc_tpu_torch.models import tag as TAG
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops.rans import lane_active, lane_lengths, lane_split
+    arr = np.frombuffer(block, np.uint8)
+    shape = B.BlockShape.for_block_size(params.fastq_block_size_bytes)
+    settings = params.to_settings()
+    ds = analyze_first_block(arr, shape, device=device)
+    g = B.BlockCodec(shape, settings, ds, device).stage_generic(arr)
+    cap = shape.cap
+    out = []
+
+    def add(name, mode, num_ctx, nsym, edges, sym, n, ctx=None, aux=None,
+            lanes_n=None):
+        lanes = lane_split(sym.to(torch.int64), lanes_n)
+        t_steps = lanes.shape[0]
+        lengths = lane_lengths(n, lanes_n, t_steps, device)
+        active = lane_active(t_steps, lengths)
+        lanes = torch.where(active, lanes, 0)
+        if mode.kind == CK.MODE_HISTORY:
+            ctx = C.history_ctx_lanes(lanes, *ctx)
+        elif mode.kind == CK.MODE_PRECOMPUTED:
+            ctx = lane_split(ctx, lanes_n)
+            aux = torch.where(active, ctx, 0).T
+        else:
+            reset, bucket = aux
+            ctx = Q.ctxq_contexts(lanes, reset, bucket, mode)
+            aux = Q.ctxq_aux(reset, bucket)
+        out.append(dict(name=name, mode=mode, num_ctx=num_ctx, nsym=nsym,
+                        edges=edges, lanes=lanes, active=active,
+                        ctx=torch.where(active, ctx, 0), lengths=lengths,
+                        aux=None if aux is None else
+                        aux.to(torch.int32).contiguous(), n=n))
+
+    # quality, CTX scheme at order 2
+    n = g.q_total
+    hist = Q.quality_stats(g.qvals, n, g.parsed.qual_len, g.num_rec, -1,
+                           cap, shape.rcap)[0].cpu().numpy()
+    present = np.flatnonzero(hist)
+    a_pad = Q._a_pad(len(present))
+    lut = np.zeros(256, np.int32)
+    lut[present] = np.arange(len(present))
+    dense = torch.from_numpy(lut).to(device)[g.qvals.to(torch.int64)]
+    nc, lanes_n, edges = Q._geom(cap, n)
+    num_ctx, mode, reset, bucket = Q.ctxq_model(
+        g.parsed.qual_len, nc, settings.quality_order, a_pad, lanes_n,
+        Q._pow2ceil(n))
+    add("quality", mode, num_ctx, a_pad, edges, dense[:nc], n,
+        aux=(reset, bucket), lanes_n=lanes_n)
+    # DNA base pairs, CTX4P at order 6 (N bases fold into the quality)
+    if int(g.dna[:g.dna_total].max()) >= 4:
+        raise AssertionError("the -m1 block's DNA is not 4-symbol")
+    npairs = (g.dna_total + 1) // 2
+    pairs = DNA._to_pairs(g.dna, g.dna_total, cap, 4)
+    ncp = C.stream_cap(cap // 2, npairs)
+    lanes_p = C.pick_num_lanes(ncp)
+    order = DNA._order4p_eff(settings.dna_order, npairs)
+    add("dna_pairs", CK.CtxMode(CK.MODE_HISTORY, sbits=4,
+                                cmask=(1 << (4 * order)) - 1),
+        1 << (4 * order), 16, C.band_edges(ncp // lanes_p), pairs[:ncp],
+        npairs, ctx=(order, 4), lanes_n=lanes_p)
+    # titles as one free-text field: contexts min(position, 15)
+    tl = g.parsed.title_len[:g.num_rec].cpu().numpy()
+    n = g.t_total
+    nc = C.stream_cap(cap, n)
+    lanes_n = C.pick_num_lanes(nc)
+    text = torch.nn.functional.pad(g.titles[:n].to(torch.int64),
+                                   (0, nc - n))
+    tctx = torch.from_numpy(np.pad(TAG._text_ctx({0: tl}, [0]),
+                                   (0, nc - n))).to(device)
+    add("tag_text", CK.CtxMode(CK.MODE_PRECOMPUTED), TAG.TEXT_NUM_CTX, 256,
+        C.band_edges(nc // lanes_n), text, n, ctx=tctx, lanes_n=lanes_n)
+    return out
+
+
+def _err(a, b) -> int:
+    import torch
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+        if a.numel() else 0
+
+
+def k3_bytes_ops(st, payload_bytes: int, t0: int, t1: int, cum_numel: int):
+    """K3's bound inputs for steps [t0, t1): bytes (payload words the band
+    consumes counted once for the stream, per-lane state in and out, the
+    table, aux in, symbols and ids out) and operations (per active step:
+    the rANS arithmetic, the context and carry update, one compare per
+    table entry)."""
+    lanes = st["lanes"].shape[1]
+    steps = lanes * (t1 - t0)
+    active = int(st["active"][t0:t1].sum())
+    nbytes = (payload_bytes + 2 * 4 * 4 * lanes + cum_numel * 4
+              + (4 * steps if st["aux"] is not None else 0) + 8 * steps)
+    ops = (DEC_OPS_BASE + 4 + st["nsym"]) * active
+    return nbytes, ops
+
+
+def bound(nbytes: float, nops: float):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / INT32_OPS_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def ctx_checks(device, streams, shape_name: str, timed: bool,
+               check_plain: bool):
+    """For each stream: K1 against its plain version on the stream's
+    (freq, cum) (check_plain), then the band loop of ops/ctx.decode_ctx_lanes
+    with K3 launched per band and, per band, held against the plain
+    version from the same state (check_plain); the decoded symbols must
+    equal the encoded ones.  Times K1 and each band's K3 (timed).  Prints
+    one line per stream; returns {stream name: record}."""
+    import torch
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs, quantize_counts
+    records = {}
+    for st in streams:
+        lanes, active, nsym = st["lanes"], st["active"], st["nsym"]
+        t_steps, l = lanes.shape
+        freq, cum = C.ctx_models(lanes, active, st["ctx"], st["num_ctx"],
+                                 nsym, st["edges"])
+        enc = RK.rans_encode_from_freqs(freq, cum, active)
+        line = {"phase": "kernels", "stream": f"{shape_name}_{st['name']}",
+                "mode": st["mode"].kind, "T": t_steps, "L": l, "A": nsym,
+                "C": st["num_ctx"], "n": st["n"], "bands": len(st["edges"]) - 1,
+                "table_bytes": st["num_ctx"] * (nsym + 1) * 4,
+                "table_in_shared_memory":
+                    st["num_ctx"] * (nsym + 1) * 4 <= CK.CTX_SMEM_BUDGET}
+        if check_plain:
+            plain = RK.rans_encode_plain(freq, cum, active)
+            e1 = max(_err(a, b) for a, b in zip(enc, plain))
+            if e1 or any(a.shape != b.shape for a, b in zip(enc, plain)):
+                raise AssertionError(f"K1 differs from its plain version on "
+                                     f"{line['stream']}: max abs err {e1}")
+            line["k1_max_abs_err"] = e1
+        payload = _left_aligned(*enc).contiguous()
+        states = enc[2]
+        payload_bytes = 2 * int(enc[1].sum())
+        if timed:
+            line["k1_ms"] = time_ms(
+                lambda: RK.rans_encode_from_freqs(freq, cum, active), 5)
+            line["k1_device_ms"] = time_device_ms(
+                lambda: RK.rans_encode_from_freqs(freq, cum, active), 5)
+            line["k1_bound_ms"], line["k1_bound_by"] = bound(
+                freq.numel() * 9 + enc[0].numel() * 4 + l * 8,
+                ENC_OPS_PER_SYM * int(active.sum()))
+        # the band loop of decode_ctx_lanes, with per-band checks and times
+        x = states.clone()
+        wptr = torch.zeros(l, dtype=torch.int32, device=device)
+        carry = torch.zeros(l, dtype=torch.int32, device=device)
+        osym = torch.empty((l, t_steps), dtype=torch.int32, device=device)
+        octx = torch.empty_like(osym)
+        nbins = st["num_ctx"] * nsym
+        hist = torch.zeros(nbins, dtype=torch.int64, device=device)
+        steps = torch.arange(t_steps, device=device)
+        bands, e3 = [], 0
+        for b in range(len(st["edges"]) - 1):
+            t0, t1 = st["edges"][b], st["edges"][b + 1]
+            cumt = cum_from_freqs(quantize_counts(
+                hist.view(st["num_ctx"], nsym))).contiguous()
+            args = (payload, st["lengths"], cumt, st["aux"])
+
+            def band(state, fn=CK.ctx_decode_band, t0=t0, t1=t1, args=args,
+                     outs=None):
+                xs, ws, cs = (v.clone() for v in state)
+                os_, oc = outs if outs is not None else \
+                    (torch.empty_like(osym), torch.empty_like(octx))
+                fn(args[0], xs, ws, cs, args[1], args[2], args[3], os_, oc,
+                   t0, t1, st["mode"])
+                return xs, ws, cs, os_, oc
+
+            rec = {"t0": t0, "t1": t1}
+            if check_plain:
+                got = band((x, wptr, carry))
+                ref = band((x, wptr, carry), CK.ctx_decode_band_plain)
+                e = max(_err(a, b) for a, b in zip(got[:3], ref[:3]))
+                e = max(e, _err(got[3][:, t0:t1], ref[3][:, t0:t1]),
+                        _err(got[4][:, t0:t1], ref[4][:, t0:t1]))
+                if e:
+                    raise AssertionError(
+                        f"K3 differs from its plain version on "
+                        f"{line['stream']} band {b}: max abs err {e}")
+                e3 = max(e3, e)
+            if timed:
+                state = (x, wptr, carry)
+                rec["ms"] = time_ms(lambda: band(state), 5)
+                rec["device_ms"] = time_device_ms(lambda: band(state), 5)
+                share = int(active[t0:t1].sum()) / max(1, int(active.sum()))
+                nb, no = k3_bytes_ops(st, payload_bytes * share, t0, t1,
+                                      cumt.numel())
+                rec["bound_ms"], rec["bound_by"] = bound(nb, no)
+            x, wptr, carry, _, _ = band((x, wptr, carry), outs=(osym, octx))
+            if b + 2 < len(st["edges"]):
+                act = steps[None, t0:t1] < st["lengths"][:, None]
+                hist += C.hist_update(octx[:, t0:t1].to(torch.int64) * nsym
+                                      + osym[:, t0:t1], act, nbins)
+            bands.append(rec)
+        if not torch.equal(torch.where(active, osym.T, 0), lanes.to(
+                torch.int32)):
+            raise AssertionError(f"K3 does not decode the encoded symbols of "
+                                 f"{line['stream']}")
+        line["k3_launches"] = len(bands)
+        if check_plain:
+            line["k3_max_abs_err"] = e3
+        if timed:
+            line["bands"] = bands
+            for k in ("ms", "device_ms", "bound_ms"):
+                line[f"k3_{k}"] = sum(r[k] for r in bands)
+            nb, no = k3_bytes_ops(st, payload_bytes, 0, t_steps, sum(
+                st["num_ctx"] * (nsym + 1) for _ in bands))
+            line["k3_stream_bound_ms"], line["k3_stream_bound_by"] = \
+                bound(nb, no)
+            line["k3_ns_per_step"] = line["k3_ms"] * 1e6 / t_steps
+        emit(line)
+        records[st["name"]] = dict(line, payload=payload, states=states,
+                                   stream=st)
+    return records
+
+
+def k3_plain_ms(rec) -> float:
+    """The plain version's time over a whole stream (its band loop, K3
+    replaced by ctx_decode_band_plain), one timed call after a warm-up."""
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    st = rec["stream"]
+
+    def run():
+        saved = C.ctx_decode_band
+        C.ctx_decode_band = CK.ctx_decode_band_plain
+        try:
+            return C.decode_ctx_lanes(rec["payload"], rec["states"],
+                                      st["lengths"], st["lanes"].shape[0],
+                                      st["num_ctx"], st["nsym"], st["edges"],
+                                      st["mode"], st["aux"])
+        finally:
+            C.ctx_decode_band = saved
+    return time_ms(run, 1)
+
+
+def a19_check(device, n: int, timed: bool) -> dict:
+    """A19 (K4: K2 at P = 1, group = T) on a 19-symbol stream of n symbols
+    laid out as dna.py lays out a block's DNA: encode through K1, decode
+    through K2 against rans_decode_plain and against the symbols."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.models import dna as DNA
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    rng = np.random.default_rng(19)
+    nc = C.stream_cap(1 << 30, n)
+    lanes = C.pick_num_lanes(nc, target_per_lane=2048)
+    syms = np.zeros(nc, np.int32)
+    syms[:n] = rng.choice(19, n, p=rng.dirichlet(np.full(19, 0.7)))
+    syms = torch.from_numpy(syms).to(device)
+    payload, nwords, states, freqs = DNA._a19_encode(syms, n, 19, lanes, nc)
+    pl = _left_aligned(payload, nwords, states).contiguous()
+    t = nc // lanes
+    args = (pl, states, torch.zeros(lanes, dtype=torch.int32, device=device),
+            cum_from_freqs(freqs)[None, :].contiguous(), n, t)
+    got = RK.rans_decode(*args)
+    ref = RK.rans_decode_plain(*args)
+    e = _err(got, ref)
+    if e or not torch.equal(got.reshape(-1)[:n], syms[:n]):
+        raise AssertionError(f"A19 through K2: max abs err {e} vs plain")
+    line = {"phase": "kernels", "stream": "a19", "n": n, "T": t, "L": lanes,
+            "A": 19, "P": 1, "k2_max_abs_err": e}
+    if timed:
+        line["ms"] = time_ms(lambda: RK.rans_decode(*args), 5)
+        line["device_ms"] = time_device_ms(lambda: RK.rans_decode(*args), 5)
+        line["plain_ms"] = time_ms(lambda: RK.rans_decode_plain(*args), 1)
+        line["bound_ms"], line["bound_by"] = bound(
+            2 * int(nwords.sum()) + 8 * lanes + 80 + 4 * nc,
+            (DEC_OPS_BASE + 5) * n)
+    emit(line)
+    return line
+
+
+def with_iupac(data: bytes, seed: int) -> bytes:
+    """Replace about 1% of the bases whose quality is at least 20 by IUPAC
+    codes, so that the DNA keeps more than 8 distinct symbols (scheme
+    A19)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lines = data.split(b"\n")
+    codes = np.frombuffer(b"RWSKMDVHBY", np.uint8)
+    for i in range(1, len(lines) - 1, 4):
+        s = np.frombuffer(lines[i], np.uint8).copy()
+        q = np.frombuffer(lines[i + 2], np.uint8)
+        pick = (rng.random(len(s)) < 0.01) & (q >= 33 + 20)
+        s[pick] = codes[rng.integers(0, len(codes), int(pick.sum()))]
+        lines[i] = s.tobytes()
+    return b"\n".join(lines)
+
+
+def lossy_fixed_point(device, data: bytes, params) -> bytes:
+    """What a lossy archive of data decodes to (binned qualities, N where a
+    bin is 0); checked to keep the titles and the bases of data.  Lossy
+    coding is idempotent on it, so its round trip is byte-exact, as the
+    golden lossy fixture's is."""
+    from dsrc_tpu_torch.api import DsrcModule
+    arch, out = io.BytesIO(), io.BytesIO()
+    DsrcModule(params, device=device).compress(io.BytesIO(data), arch)
+    arch.seek(0)
+    DsrcModule(params, device=device).decompress(arch, out)
+    got, want = out.getvalue().split(b"\n"), data.split(b"\n")
+    if got[0::4] != want[0::4] or len(got) != len(want) or any(
+            g != w and any(a != b and a != ord("N")
+                           for a, b in zip(g, w))
+            for g, w in zip(got[1::4], want[1::4])):
+        raise AssertionError("lossy decode changed titles or bases")
+    return out.getvalue()
+
+
+def generic_phase(device, big: bytes, small: bytes):
+    """The -m1 path at full width (big: 128 MB) and the GENERIC options at
+    8 MB (small: an 8 MB realistic file) on the card."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.utils.synth import make_fastq
+    gen = ("rans_encode", "ctx_decode")
+    res = round_trip(device, "generic_m1_128MB", big, m1_params(64 * MB),
+                     gen)
+    res.pop("archive")
+    emit(res)
+    p8 = m1_params(8 * MB)
+    r8 = round_trip(device, "generic_m1_8MB", small, p8, gen)
+    cpu = io.BytesIO()
+    DsrcModule(p8, device="cpu").compress(io.BytesIO(small), cpu)
+    if cpu.getvalue() != r8.pop("archive"):
+        raise AssertionError("the 8 MB -m1 archive on the card differs from "
+                             "the port's archive on the CPU")
+    r8["equals_cpu_archive"] = True
+    emit(r8)
+    runs = [res, r8]
+    variable = make_fastq(8 * MB // 170, 70, seed=83, variable_length=True)
+    lossy = InputParameters(fastq_block_size_mb=8, lossy_quality=True,
+                            quality_compression_level=2)
+    for name, data, params, kern in (
+            ("generic_d0q0_variable", variable,
+             InputParameters(fastq_block_size_mb=8), gen),
+            ("generic_lossy_q2_4level",
+             lossy_fixed_point(device, realistic_of_size(
+                 8 * MB - 1024, 84, "novaseq"), lossy), lossy, gen),
+            ("generic_crc", small,
+             m1_params(8 * MB, calculate_crc32=True), gen),
+            ("generic_a19", with_iupac(small, 85),
+             InputParameters(fastq_block_size_mb=8, dna_compression_level=1),
+             gen + ("rans_decode",))):
+        r = round_trip(device, name, data, params, kern)
+        r.pop("archive")
+        emit(r)
+        runs.append(r)
+    if not any(d == "A19" for d, _ in runs[-1]["schemes"]):
+        raise AssertionError("the A19 run took no A19 block")
+    return runs
+
+
+# --------------------------------------------------------------------------
 # Phases 4-6: the main path through DsrcModule
 # --------------------------------------------------------------------------
 
-def round_trip(device, name: str, data: bytes, params=None) -> dict:
+def round_trip(device, name: str, data: bytes, params=None,
+               kernels=("rans_encode", "rans_decode")) -> dict:
     """Compress and decompress `data` through DsrcModule on `device`, with
-    the launch counts set to 0 just before and read just after."""
+    the launch counts set to 0 just before and read just after; fails
+    unless each of `kernels` was launched."""
     import torch
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.ops import rans_kernels as RK
@@ -373,7 +782,7 @@ def round_trip(device, name: str, data: bytes, params=None) -> dict:
     out = io.BytesIO()
     RK.reset_launch_counts()
     t0 = time.perf_counter()
-    mod.compress(io.BytesIO(data), arch)
+    info = mod.compress(io.BytesIO(data), arch)
     t1 = time.perf_counter()
     stages_c = dict(mod.last_stage_times.seconds)
     arch.seek(0)
@@ -385,8 +794,8 @@ def round_trip(device, name: str, data: bytes, params=None) -> dict:
     stages_d = dict(mod.last_stage_times.seconds)
     if out.getvalue() != data:
         raise AssertionError(f"{name}: round trip is not byte-exact")
-    for k, n in counts.items():
-        if n == 0:
+    for k in kernels:
+        if counts[k] == 0:
             raise AssertionError(f"{name}: kernel {k} was not launched on "
                                  f"the main path")
     mb = len(data) / MB
@@ -399,7 +808,9 @@ def round_trip(device, name: str, data: bytes, params=None) -> dict:
             "roundtrip_MBps": mb / (t2 - t0),
             # host-clock seconds per stage, summed over the worker threads
             "compress_stage_s": stages_c, "decompress_stage_s": stages_d,
-            "launches": counts}
+            "launches": counts, "schemes": info.schemes,
+            "archive": arch.getvalue() if len(data) <= 8 * MB + 4096
+            else None}
 
 
 def fastq_of_size(nbytes: int, seed: int, fixed_width: bool) -> bytes:
@@ -413,18 +824,19 @@ def fastq_of_size(nbytes: int, seed: int, fixed_width: bool) -> bytes:
     return data[:int(ends[np.searchsorted(ends, nbytes) - 1]) + 1]
 
 
-def profile_round_trip(device, data: bytes) -> dict:
-    """One SEMI round trip under torch.profiler: the device's busy time
-    (union of its kernel and copy intervals) as a share of the wall time,
-    and device time by kernel name.  The profiler's own cost inflates the
-    wall time."""
+def profile_round_trip(device, name: str, data: bytes, params=None,
+                       kernels=("rans_encode", "rans_decode")) -> dict:
+    """One round trip under torch.profiler: the device's busy time (union
+    of its kernel and copy intervals) as a share of the wall time, and
+    device time by kernel name.  The profiler's own cost inflates the wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        round_trip(device, "semi", data)
+        round_trip(device, name, data, params, kernels)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -439,13 +851,15 @@ def profile_round_trip(device, data: bytes) -> dict:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (t - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / 1e3
-            for k in ("rans_encode", "rans_decode")}
-    return {"phase": "profile", "wall_ms": wall_ms,
+            for k in ("rans_encode", "rans_decode", "ctx_decode")}
+    return {"phase": "profile", "path": name, "wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "device_events": len(dev),
             "top_device_ms": {k: v / 1e3 for k, v in top},
-            "kernel_device_ms": ours}
+            "kernel_device_ms": ours,
+            "kernel_share_of_busy": {k: v / (busy_us / 1e3)
+                                     for k, v in ours.items()}}
 
 
 def golden(device) -> dict:
@@ -454,7 +868,11 @@ def golden(device) -> dict:
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.config import InputParameters
     out = {"phase": "golden"}
-    for name in ("golden_uniform", "golden_semi"):
+    for name, kw in (("golden_uniform", {}), ("golden_semi", {}),
+                     ("golden_generic", dict(dna_compression_level=2,
+                                             quality_compression_level=2)),
+                     ("golden_lossy", dict(lossy_quality=True,
+                                           quality_compression_level=1))):
         fq = open(os.path.join(DATA, name + ".fastq"), "rb").read()
         xz = open(os.path.join(DATA, name + ".xfqz"), "rb").read()
         dec = io.BytesIO()
@@ -462,7 +880,7 @@ def golden(device) -> dict:
         if dec.getvalue() != fq:
             raise AssertionError(f"{name}.xfqz does not decode byte-exactly")
         arch = io.BytesIO()
-        DsrcModule(InputParameters(fastq_block_size_bytes=1 << 17),
+        DsrcModule(InputParameters(fastq_block_size_bytes=1 << 17, **kw),
                    device=device).compress(io.BytesIO(fq), arch)
         if arch.getvalue() != xz:
             raise AssertionError(f"{name}: compressing its input does not "
@@ -497,32 +915,70 @@ def main() -> int:
     records["rans_decode"]["max_abs_err"] = max(
         records["rans_decode"]["max_abs_err"], oversized_table_check(device))
 
-    launches = {"rans_encode": 0, "rans_decode": 0}
+    # GENERIC: the context-model streams of an 8 MB -m1 block (K1 and K3
+    # against their plain versions, every band), A19 through K2, then K3's
+    # and K1's times at the 64 MB block's shapes
+    m1_8mb = realistic_of_size(8 * MB - 1024, seed=82)
+    recs8 = ctx_checks(device, ctx_streams(device, m1_8mb, m1_params(8 * MB)),
+                       "8MB", timed=False, check_plain=True)
+    a19 = a19_check(device, 3_300_000, timed=True)
+    from dsrc_tpu_torch.io.chunker import FastqChunker
+    big = realistic_of_size(128 * MB - 4096, seed=81)
+    block64 = FastqChunker(io.BytesIO(big), 64 * MB).next_block().tobytes()
+    recs64 = ctx_checks(device, ctx_streams(device, block64,
+                                            m1_params(64 * MB)),
+                        "64MB", timed=True, check_plain=False)
+    k3_plain = k3_plain_ms(recs64["quality"])
+    records["rans_encode"]["max_abs_err"] = max(
+        [records["rans_encode"]["max_abs_err"]]
+        + [r["k1_max_abs_err"] for r in recs8.values()])
+
+    launches = {"rans_encode": 0, "rans_decode": 0, "ctx_decode": 0}
     # a little under 8 and 2 whole 8 MB blocks: the chunker cuts each block
     # at a record boundary
     semi = fastq_of_size(64 * MB - 4096, seed=7, fixed_width=False)
     res = round_trip(device, "semi", semi)
+    res.pop("archive")
     emit(res)
     uni = fastq_of_size(16 * MB - 1024, seed=8, fixed_width=True)
     res_u = round_trip(device, "uniform", uni)
+    res_u.pop("archive")
     emit(res_u)
-    for r in (res, res_u):
+    runs = generic_phase(device, big, m1_8mb)
+    for r in [res, res_u] + runs:
         for k, n in r["launches"].items():
             launches[k] += n
     emit(golden(device))
-    emit(profile_round_trip(device, semi))
+    emit(profile_round_trip(device, "semi", semi))
+    emit(profile_round_trip(device, "generic_m1_64MB_block", block64,
+                            m1_params(64 * MB), ("rans_encode", "ctx_decode")))
 
+    q64 = recs64["quality"]
+    records["ctx_decode"] = dict(
+        max_abs_err=max(r["k3_max_abs_err"] for r in recs8.values()),
+        ms=q64["k3_ms"], plain_ms=k3_plain, bound_ms=q64["k3_stream_bound_ms"],
+        bound_by=q64["k3_stream_bound_by"])
+    records["a19_decode"] = dict(
+        max_abs_err=a19["k2_max_abs_err"], ms=a19["ms"],
+        plain_ms=a19["plain_ms"], bound_ms=a19["bound_ms"],
+        bound_by=a19["bound_by"])
+    launches["a19_decode"] = runs[-1]["launches"]["rans_decode"]
     replaces = {"rans_encode": "dsrc_tpu/ops/rans_pallas.py:73",
-                "rans_decode": "dsrc_tpu/ops/rans_pallas.py:250"}
+                "rans_decode": "dsrc_tpu/ops/rans_pallas.py:250",
+                "ctx_decode": "dsrc_tpu/ops/ctx.py:160",
+                "a19_decode": "dsrc_tpu/ops/rans.py:305"}
     sources = {"rans_encode": "dsrc_tpu_torch/csrc/rans_enc.cu",
-               "rans_decode": "dsrc_tpu_torch/csrc/rans_dec.cu"}
+               "rans_decode": "dsrc_tpu_torch/csrc/rans_dec.cu",
+               "ctx_decode": "dsrc_tpu_torch/csrc/ctx_dec.cu",
+               "a19_decode": "dsrc_tpu_torch/csrc/rans_dec.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=records[k]["max_abs_err"],
                     ms=records[k]["ms"], plain_ms=records[k]["plain_ms"],
                     bound_ms=records[k]["bound_ms"],
                     bound_by=records[k]["bound_by"], library_ms=None)
-               for k in ("rans_encode", "rans_decode")]
+               for k in ("rans_encode", "rans_decode", "ctx_decode",
+                         "a19_decode")]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

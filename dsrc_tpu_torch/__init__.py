@@ -1,12 +1,13 @@
 """dsrc_tpu_torch — the PyTorch / CUDA port of dsrc_tpu, the FASTQ
 compression engine.
 
-Writes and reads the same `.xfqz` archives as dsrc_tpu.  This slice covers
-the default fast mode (-d0 -q0) on fixed-read-length Illumina blocks: the
-UNIFORM and SEMI (numeric-title) block classes, whose positional rANS
-encode and decode run as two hand-written CUDA kernels (ops/rans_kernels.py,
-csrc/).  Entry points run on "cuda" unless the caller passes device="cpu".
-It imports nothing of dsrc_tpu and no JAX.
+Writes and reads the same `.xfqz` archives as dsrc_tpu: the fast mode
+(-d0 -q0) on fixed-read-length Illumina blocks (the UNIFORM and SEMI
+numeric-title classes) and the GENERIC class (-d0..3, -q0..2, lossy, CRC,
+field filtering, variable read lengths).  Its rANS encode and decode run as
+hand-written CUDA kernels (csrc/; ops/rans_kernels.py, ops/ctx_kernels.py).
+Entry points run on "cuda" unless the caller passes device="cpu".  It
+imports nothing of dsrc_tpu and no JAX.
 """
 __version__ = "0.1.0"
 

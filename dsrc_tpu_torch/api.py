@@ -195,6 +195,10 @@ class DsrcModule:
             def job(block):
                 t0 = time.perf_counter()
                 blob, info = codec.compress(block)
+                if settings.calculate_crc32 and \
+                        not codec.verify_checksum(blob):
+                    raise DsrcException("CRC32 verification failed "
+                                        "while compressing")
                 times.add("codec", time.perf_counter() - t0, len(block))
                 return blob, _count_records(block), info
 

@@ -5,8 +5,8 @@
     python -m dsrc_tpu_torch c -s out.xfqz < in.fastq      (stdin FASTQ)
     python -m dsrc_tpu_torch d -s in.xfqz > out.fastq      (stdout FASTQ)
 
-This slice of the port codes the -d0 -q0 UNIFORM and SEMI (numeric-title)
-blocks; other settings and block classes, and -r, exit with an error.
+The port codes every setting below; colour-space input, SEMI blocks with
+free-text titles at -d0 -q0, and -r exit with an error for now.
 
 Options (compression):
   -d<n>  DNA compression level 0..3 (order = 3n)        [0]

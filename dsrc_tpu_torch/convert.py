@@ -13,6 +13,12 @@ jax arrays (compress_uniform / compress_semi_tok, np.asarray'd by the
 caller).  The port keeps u32 fields as int32 tensors with the same bits.
 With these two functions a stream encoded by one package goes through the
 other's decode.
+
+The GENERIC class shares no such dict: its sections are coded one stream
+at a time, and a coded stream is the dict {payload [L, W] int32 u16 pairs,
+nwords [L] int32, states [L] u32} of the reference's encoders
+(ops/ctx.py encode_orderk, models/quality.py _encode_ctx*).
+coded_from_numpy moves one to the port's tensors.
 """
 from __future__ import annotations
 
@@ -69,3 +75,10 @@ def comp_to_numpy(comp: dict) -> dict:
                   exc_bits.astype(np.int32).view(np.uint32),
                   np.int32(int(exc_count)))
     return out
+
+
+def coded_from_numpy(enc: dict, device="cuda") -> dict:
+    """A coded stream of the reference (payload, nwords, states; numpy or
+    anything np.asarray takes) -> the port's int32 tensors on `device`."""
+    dev = resolve_device(device)
+    return {k: _i32(enc[k]).to(dev) for k in ("payload", "nwords", "states")}

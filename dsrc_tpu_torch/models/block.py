@@ -1,42 +1,55 @@
-"""Block codec of the port: the UNIFORM and SEMI (title mode 2) classes of
-dsrc_tpu/models/block.py, byte-identical blobs.
+"""Block codec of the port: the UNIFORM, SEMI (title mode 2) and GENERIC
+classes of dsrc_tpu/models/block.py, byte-identical blobs.
 
-  compress:   host staging (numpy) -> device tensors -> uniform_pipeline
+  UNIFORM / SEMI: host staging (numpy) -> device tensors -> uniform_pipeline
               (positional rANS through kernels K1/K2) -> host serialization
+  GENERIC:    device parse and stream gathers -> record transforms (folding
+              or lossy binning) -> tag / quality / DNA sections, each stream
+              coded by the context-model codec (ops/ctx.py: K1 to encode,
+              K3 to decode; DNA scheme A19 decodes through K2)
   decompress: exact mirror; FASTQ text is laid out on the host
               (utils/native.layout_records)
 
-Block classes this slice does not cover raise DsrcException and never
-write other bytes: the GENERIC class (every -d1..3, -q1..2, lossy, CRC,
-colour-space and variable-length block) and SEMI title mode 0 (free-text
-titles).
+Still raising DsrcException, and never writing other bytes: colour-space
+data (the GENERIC transform of SOLiD reads) and SEMI title mode 0
+(free-text titles on fixed-length reads).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CompressionSettings, DatasetType, DsrcException
+from ..ops import parser as P
+from ..ops import transform as T
 from ..ops.rans import PROB_BITS, payload_pairs
 from ..ops.streams import (deserialize_rans, pack_ints, serialize_rans,
                            to_numpy, unpack_ints)
 from ..parallel import uniform_pipeline as UP
 from ..utils import native
 from ..utils.bitio import BitReader, BitWriter
+from ..utils.crc32 import crc32
 from ..utils.device import resolve_device
 from ..utils.npbits import np_pack_fixed, np_unpack_fixed
+from . import dna as DNA
+from . import quality as Q
 from . import tag as TAG
 
-BLOCK_GENERIC = 0   # per-stream scheme-selected sections (not ported yet)
+FLAG_CRC = 1
+FLAG_COLOR_SPACE = 2
+FLAG_PLUS_REP = 4
+
+BLOCK_GENERIC = 0   # per-stream scheme-selected sections
 BLOCK_UNIFORM = 1   # fixed-layout records
 BLOCK_SEMI = 2      # fixed read length, variable titles (real Illumina)
 
-_GENERIC_MSG = ("the GENERIC block class (-d1..3, -q1..2, lossy, CRC32, "
-                "colour space, variable read length) is not ported to "
-                "dsrc_tpu_torch yet; use dsrc_tpu")
+HASH_CHAR = ord("#")   # truncation symbol (reference RecordsProcessor.h:76)
+
+_CS_MSG = ("colour-space (SOLiD) blocks are not ported to dsrc_tpu_torch "
+           "yet; use dsrc_tpu")
 _SEMI0_MSG = ("SEMI blocks with free-text titles (title mode 0) are not "
               "ported to dsrc_tpu_torch yet; use dsrc_tpu")
 
@@ -62,16 +75,19 @@ class BlockShape:
 
 @dataclasses.dataclass
 class StreamsInfo:
-    """Per-stream raw/compressed byte accounting (reference Common.h:82-105)."""
+    """Per-stream raw/compressed byte accounting (reference Common.h:82-105),
+    and the (DNA, quality) scheme names of each GENERIC block."""
     raw: dict = dataclasses.field(
         default_factory=lambda: dict(meta=0, tag=0, dna=0, quality=0))
     comp: dict = dataclasses.field(
         default_factory=lambda: dict(meta=0, tag=0, dna=0, quality=0))
+    schemes: list = dataclasses.field(default_factory=list)
 
     def add(self, other: "StreamsInfo") -> None:
         for k in self.raw:
             self.raw[k] += other.raw[k]
             self.comp[k] += other.comp[k]
+        self.schemes.extend(other.schemes)
 
 
 # --------------------------------------------------------------------------
@@ -403,6 +419,26 @@ def parse_semi_block(r: BitReader) -> dict:
 # Block codec
 # --------------------------------------------------------------------------
 
+class GenericStreams(NamedTuple):
+    """A GENERIC block parsed and transformed, before its sections are
+    coded: the parse, the gathered title / sequence / quality byte streams
+    (device, [cap]) with their totals, the block's quality offset, the
+    dense DNA symbols left after folding and the quality values."""
+    parsed: P.ParsedBlock
+    num_rec: int
+    qual_len: np.ndarray
+    titles: torch.Tensor
+    t_total: int
+    seqs: torch.Tensor
+    s_total: int
+    quals: torch.Tensor
+    q_total: int
+    offset: int
+    dna: torch.Tensor
+    dna_total: int
+    qvals: torch.Tensor
+
+
 class BlockCodec:
     """Per-block compress/decompress bound to one BlockShape and device.
 
@@ -432,7 +468,7 @@ class BlockCodec:
                 out = self._compress_semi(block)
             if out is not None:
                 return out
-        raise DsrcException(_GENERIC_MSG)
+        return self._compress_generic(block)
 
     def _uniform_eligible(self) -> bool:
         st, ds = self.settings, self.dataset
@@ -501,7 +537,7 @@ class BlockCodec:
         if scheme == BLOCK_SEMI:
             return self._decompress_semi(r)
         if scheme == BLOCK_GENERIC:
-            raise DsrcException(_GENERIC_MSG)
+            return self._decompress_generic(r)
         raise DsrcException(f"bad block scheme {scheme}")
 
     def _decompress_uniform(self, r: BitReader) -> np.ndarray:
@@ -529,3 +565,176 @@ class BlockCodec:
             to_numpy(qual_m[:num_rec]).reshape(-1),
             np.full(num_rec, read_len, np.int64), None,
             self.dataset.color_space, self.dataset.plus_repetition)
+
+    # -------------------------------------------------- GENERIC class
+    def stage_generic(self, block: np.ndarray) -> GenericStreams:
+        """Parse a block on the device and transform its streams (the part
+        of the GENERIC compress before the sections are coded)."""
+        sh, st, ds = self.shape, self.settings, self.dataset
+        if ds.color_space:
+            raise DsrcException(_CS_MSG)
+        dev = self.device
+        nbytes = len(block)
+        data_np = np.zeros(sh.cap, np.uint8)
+        data_np[:nbytes] = block
+        data = torch.from_numpy(data_np).to(dev)
+        parsed = P.parse_block(data, nbytes, sh.rcap)
+        if not bool(parsed.valid):
+            raise DsrcException("Error parsing FASTQ block (bad structure)")
+        num_rec = int(parsed.num_records)
+        seq_len_np = to_numpy(parsed.seq_len)[:num_rec]
+        qual_len_np = to_numpy(parsed.qual_len)[:num_rec]
+        if not (seq_len_np == qual_len_np).all():
+            raise DsrcException("sequence/quality length mismatch")
+        titles, t_total, _ = P.gather_stream(data, parsed.title_start,
+                                             parsed.title_len, sh.cap)
+        seqs, s_total, _ = P.gather_stream(data, parsed.seq_start,
+                                           parsed.seq_len, sh.cap)
+        quals, q_total, _ = P.gather_stream(data, parsed.qual_start,
+                                            parsed.qual_len, sh.cap)
+        t_total, s_total, q_total = int(t_total), int(s_total), int(q_total)
+
+        # Per-block quality offset: a block with a quality byte below the
+        # dataset offset (from the first block) falls back to offset 33 and
+        # transmits it, so every block stays exactly reversible
+        # (dsrc_tpu/models/block.py:813-833).
+        offset = ds.quality_offset
+        if q_total:
+            qmin = int(quals[:q_total].min())
+            qmax = int(quals[:q_total].max())
+            if qmin < offset:
+                offset = 33
+            if qmin < offset or qmax - offset >= T.FOLD_BASE:
+                raise DsrcException(
+                    f"quality bytes span [{qmin}, {qmax}] — outside the "
+                    f"reversible range for any FASTQ offset")
+        dna, dna_total, qvals = _forward_transform(
+            seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
+        return GenericStreams(parsed, num_rec, qual_len_np, titles, t_total,
+                              seqs, s_total, quals, q_total, offset, dna,
+                              int(dna_total), qvals)
+
+    def _compress_generic(self, block: np.ndarray
+                          ) -> Tuple[bytes, StreamsInfo]:
+        sh, st, ds = self.shape, self.settings, self.dataset
+        g = self.stage_generic(block)
+        parsed, num_rec, offset = g.parsed, g.num_rec, g.offset
+        dev = self.device
+        w = BitWriter()
+        w.put_byte(BLOCK_GENERIC)
+        flags = (FLAG_CRC if st.calculate_crc32 else 0) | \
+            (FLAG_PLUS_REP if ds.plus_repetition else 0)
+        w.put_varint(num_rec)
+        w.put_byte(flags)
+        w.put_byte(offset)
+        pack_ints(w, g.qual_len)
+        titles_np = to_numpy(g.titles)
+        if st.calculate_crc32:
+            w.put_uint32(crc32(titles_np[:g.t_total]))
+            w.put_uint32(crc32(to_numpy(g.seqs[:g.s_total])))
+            w.put_uint32(crc32(to_numpy(g.quals[:g.q_total])))
+        meta_end = w.byte_position
+        TAG.encode_tags(w, titles_np, to_numpy(parsed.title_len)[:num_rec],
+                        st.tag_preserve_mask, sh.cap, dev)
+        tag_end = w.byte_position
+        hash_val = (HASH_CHAR - offset) if (
+            not st.lossy_quality and 0 <= HASH_CHAR - offset < 256) else -1
+        q_scheme = Q.encode_quality(w, g.qvals, g.q_total, parsed.qual_len,
+                                    num_rec, st.quality_order, hash_val)
+        qual_end = w.byte_position
+        hist = to_numpy(DNA.dna_stats(g.dna, g.dna_total, sh.cap))
+        d_scheme = DNA.encode_dna(w, g.dna, g.dna_total, st.dna_order, hist)
+        blob = w.getvalue()
+        info = StreamsInfo()
+        info.raw.update(tag=g.t_total, dna=g.s_total, quality=g.q_total)
+        info.comp.update(meta=meta_end, tag=tag_end - meta_end,
+                         quality=qual_end - tag_end, dna=len(blob) - qual_end)
+        info.schemes.append((d_scheme, q_scheme))
+        return blob, info
+
+    def _decompress_generic(self, r: BitReader) -> np.ndarray:
+        sh, st, ds = self.shape, self.settings, self.dataset
+        dev = self.device
+        num_rec = r.get_varint()
+        flags = r.get_byte()
+        offset = r.get_byte()
+        if flags & FLAG_COLOR_SPACE or ds.color_space:
+            raise DsrcException(_CS_MSG)
+        qual_len_np = unpack_ints(r).astype(np.int64)
+        if num_rec > sh.rcap or len(qual_len_np) != num_rec:
+            raise DsrcException("generic block: bad record count")
+        crcs = None
+        if flags & FLAG_CRC:
+            crcs = (r.get_uint32(), r.get_uint32(), r.get_uint32())
+        titles_np, title_len_np = TAG.decode_tags(r, num_rec, sh.cap, dev)
+        hash_val = (HASH_CHAR - offset) if (
+            not st.lossy_quality and 0 <= HASH_CHAR - offset < 256) else -1
+        qlen_pad = torch.from_numpy(np.pad(
+            qual_len_np, (0, sh.rcap - num_rec)).astype(np.int32)).to(dev)
+        qvals, q_total = Q.decode_quality(r, sh.cap, qlen_pad, num_rec,
+                                          st.quality_order, hash_val)
+        dna, _ = DNA.decode_dna(r, sh.cap, st.dna_order, dev)
+        seq, qual = _backward_transform(dna, qvals, q_total, offset, sh.cap,
+                                        st.lossy_quality)
+        text = native.layout_records(
+            num_rec, titles_np, title_len_np, to_numpy(seq[:q_total]),
+            to_numpy(qual[:q_total]), qual_len_np, None, False,
+            ds.plus_repetition)
+        if crcs is not None:
+            got = _stream_crcs_from_text(text)
+            if got != crcs:
+                raise DsrcException(
+                    "CRC32 mismatch on block self-verification "
+                    f"(stored {crcs}, decoded {got})")
+        return text
+
+    # -------------------------------------------------- verification
+    def verify_checksum(self, blob: bytes) -> bool:
+        """Decode-after-encode self check (reference BlockCompressor::
+        VerifyChecksum, BlockCompressor.cpp:576-594): decompress() compares
+        the decoded streams' CRC32s with the stored ones and raises on a
+        mismatch."""
+        try:
+            self.decompress(blob)
+            return True
+        except DsrcException:
+            return False
+
+
+def _forward_transform(seqs: torch.Tensor, quals: torch.Tensor,
+                       s_total: int, offset: int, cap: int, lossy: bool):
+    """Byte streams -> (dna dense syms, dna_total, qual values [0, 256))."""
+    active = torch.arange(cap, device=seqs.device) < s_total
+    seq_sym = T.dna_remap(seqs)
+    qv = torch.clamp(torch.where(active, quals.to(torch.int32) - offset, 0),
+                     0, 255)
+    if lossy:
+        return T.forward_lossy(seq_sym, qv, active)
+    dna, dna_total, qual_out, _ = T.forward_lossless(seq_sym, qv, active)
+    return dna, dna_total, qual_out
+
+
+def _backward_transform(dna: torch.Tensor, qual_vals: torch.Tensor, n: int,
+                        offset: int, cap: int, lossy: bool):
+    """Inverse: (dna syms, coded qual values) -> (seq bytes, qual bytes)."""
+    active = torch.arange(cap, device=dna.device) < n
+    if lossy:
+        seq_sym, qv = T.backward_lossy(dna, qual_vals, active)
+    else:
+        seq_sym, qv = T.backward_lossless(dna, qual_vals, active)
+    seq = T.dna_unmap(torch.where(active, seq_sym, 0))
+    qual = torch.where(active, qv + offset, 0).to(torch.uint8)
+    return seq, qual
+
+
+def _stream_crcs_from_text(text: np.ndarray):
+    """CRC32 of the tag / sequence / quality streams of decoded FASTQ text
+    (the streams compress hashed)."""
+    nl_mask = text == 10
+    line_id = np.cumsum(nl_mask) - nl_mask
+    lmod = line_id % 4
+    is_start = np.concatenate([[True], nl_mask[:-1]])
+    t_mask = (lmod == 0) & ~nl_mask & ~is_start          # skip '@'
+    s_mask = (lmod == 1) & ~nl_mask
+    q_mask = (lmod == 3) & ~nl_mask
+    return (crc32(text[t_mask]), crc32(text[s_mask]), crc32(text[q_mask]))

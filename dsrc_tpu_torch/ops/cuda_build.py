@@ -29,7 +29,7 @@ from ..config import DsrcException
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dsrc_tpu_torch")
-SOURCES = ("rans_enc", "rans_dec")
+SOURCES = ("rans_enc", "rans_dec", "ctx_dec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -110,7 +110,8 @@ _SMEM = re.compile(r"(\d+) bytes smem")
 def kernel_name(mangled: str) -> str:
     """'_ZN44_GLOBAL__N__7ef3696d_11_rans_dec_cu_8f53b51718rans_decode_kernel
     ILi2EEEv...' -> 'rans_decode_kernel<2>': the last length-prefixed name
-    of the nested name, and its int template argument ('Lin1E' is -1)."""
+    of the nested name, and its int and bool template arguments ('Lin1E'
+    is -1, 'Lb1E' true)."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -122,9 +123,13 @@ def kernel_name(mangled: str) -> str:
         pos += d.end()
         name = mangled[pos:pos + int(d.group())]
         pos += int(d.group())
-    t = re.match(r"ILi(n?)(\d+)E", mangled[pos:])
-    if t:
-        name += f"<{'-' if t.group(1) else ''}{t.group(2)}>"
+    if mangled[pos:pos + 1] == "I":
+        args = re.findall(r"L([ib])(n?)(\d+)E", mangled[pos:].split("EE")[0]
+                          + "E")
+        name += "<" + ",".join(
+            ("-" if neg else "") + num if kind == "i" else
+            ("true" if num == "1" else "false")
+            for kind, neg, num in args) + ">"
     return name
 
 

@@ -1,5 +1,5 @@
-"""Vectorized FASTQ parsing on the device (port of the parts of
-dsrc_tpu/ops/parser.py that first-block dataset analysis uses).
+"""Vectorized FASTQ parsing on the device (port of
+dsrc_tpu/ops/parser.py).
 
 A block's byte tensor is parsed with mask/cumsum/scatter ops: newline
 detection, line tables and the record field table are bulk tensor
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .transform import take_clip
 
 NEWLINE = 10
 CR = 13
@@ -27,11 +29,6 @@ class ParsedBlock(NamedTuple):
     plus_len: torch.Tensor       # length of '+' line minus 1
     qual_start: torch.Tensor
     qual_len: torch.Tensor
-
-
-def _take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """data[idx] with indices clipped into range (jnp.take mode="clip")."""
-    return data[torch.clamp(idx, 0, data.shape[0] - 1)]
 
 
 def parse_block(data: torch.Tensor, nbytes: int,
@@ -56,7 +53,7 @@ def parse_block(data: torch.Tensor, nbytes: int,
         .scatter_(0, line_id, idx)
     starts = torch.cat([ends.new_zeros(1), ends[:-1] + 1])
     # strip trailing CR from line content
-    prev_is_cr = _take(data, ends - 1) == CR
+    prev_is_cr = take_clip(data, ends - 1) == CR
     content_ends = torch.where(prev_is_cr & (ends > starts), ends - 1, ends)
     line_len = content_ends - starts
 
@@ -72,8 +69,8 @@ def parse_block(data: torch.Tensor, nbytes: int,
     p_start, p_len = line(2)
     q_start, q_len = line(3)
 
-    first_t = _take(data, t_start)
-    first_p = _take(data, p_start)
+    first_t = take_clip(data, t_start)
+    first_p = take_clip(data, p_start)
     rec_ok = (first_t == ord("@")) & (first_p == ord("+")) & \
         (t_len >= 1) & (s_len >= 1) & (q_len >= 1)
     ok = ((rec_ok | ~rec_mask).all() & (num_lines % 4 == 0)
@@ -88,6 +85,43 @@ def parse_block(data: torch.Tensor, nbytes: int,
         seq_start=live(s_start), seq_len=live(s_len),
         plus_len=live(p_len - 1),
         qual_start=live(q_start), qual_len=live(q_len))
+
+
+def _rec_of(lens: torch.Tensor, total_cap: int):
+    """(cum, rec_of [total_cap]): the record of each stream position of the
+    concatenated per-record ranges (searchsorted side="right")."""
+    cum = torch.cumsum(lens.to(torch.int64), 0)
+    j = torch.arange(total_cap, dtype=torch.int64, device=lens.device)
+    return cum, j, torch.searchsorted(cum, j, right=True)
+
+
+def gather_stream(data: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor, total_cap: int):
+    """Concatenate per-record byte ranges into one contiguous stream.
+
+    Returns (stream uint8 [total_cap] zero-padded, total (0-dim int64),
+    offsets [R] int64: start of each record's range in the stream)."""
+    cum, j, rec_of = _rec_of(lens, total_cap)
+    offsets = cum - lens
+    total = cum[-1] if lens.shape[0] else cum.new_zeros(())
+    src = take_clip(starts.to(torch.int64), rec_of) + \
+        (j - take_clip(offsets, rec_of))
+    out = torch.where(j < total, take_clip(data, src), 0)
+    return out.to(torch.uint8), total, offsets
+
+
+def scatter_stream(stream: torch.Tensor, offsets: torch.Tensor,
+                   lens: torch.Tensor, dst_starts: torch.Tensor, cap: int):
+    """Inverse of gather_stream: stream[offsets[r]:offsets[r]+lens[r]]
+    written at dst_starts[r] of a zeroed uint8 [cap]."""
+    cum, j, rec_of = _rec_of(lens, stream.shape[0])
+    total = cum[-1] if lens.shape[0] else cum.new_zeros(())
+    dst = take_clip(dst_starts.to(torch.int64), rec_of) + \
+        (j - take_clip(cum - lens, rec_of))
+    dst = torch.where((j < total) & (dst >= 0) & (dst < cap), dst, cap)
+    out = torch.zeros(cap + 1, dtype=torch.uint8, device=stream.device)
+    out.scatter_(0, dst, stream.to(torch.uint8))
+    return out[:cap]
 
 
 def analyze_block(data: torch.Tensor, parsed: ParsedBlock) -> dict:
@@ -118,7 +152,7 @@ def analyze_block(data: torch.Tensor, parsed: ParsedBlock) -> dict:
         torch.where((qmax <= 105) & (qmin >= 64), 64,
                     torch.where(qmin >= 59, 59, 33)))
 
-    second = _take(data, parsed.seq_start + 1)
+    second = take_clip(data, parsed.seq_start + 1)
     is_cs_char = ((second >= ord("0")) & (second <= ord("3"))) | \
         (second == ord("."))
     has_rec = parsed.num_records > 0

@@ -1,5 +1,6 @@
-"""rANS constants and the shared model-table math (port of the parts of
-dsrc_tpu/ops/rans.py that the positional codec uses).
+"""rANS constants, the lane layout and the shared model-table math (port of
+the parts of dsrc_tpu/ops/rans.py that the positional and context-model
+codecs use).
 
 Probabilities are quantized to a power-of-two total (M = 2^14) so decoding
 needs no division; renormalization moves at most one 16-bit word per
@@ -30,6 +31,36 @@ def payload_pairs(t_steps: int) -> int:
     dsrc_tpu/ops/rans.py:233-234)."""
     tp = -(-t_steps // ENC_UNROLL) * ENC_UNROLL
     return -(-(tp + ENC_UNROLL) // (2 * TILE)) * TILE
+
+
+def lane_lengths(n: int, num_lanes: int, t_steps=None,
+                 device=None) -> torch.Tensor:
+    """Per-lane symbol counts (int32) when lane j codes symbols
+    [j*T, (j+1)*T) of n; T defaults to ceil(n / num_lanes)."""
+    t = t_steps if t_steps is not None else (-(-n // num_lanes) if n else 0)
+    starts = torch.clamp(torch.arange(num_lanes, dtype=torch.int64,
+                                      device=device) * t, max=n)
+    return (torch.clamp(starts + t, max=n) - starts).to(torch.int32)
+
+
+def lane_split(arr: torch.Tensor, num_lanes: int) -> torch.Tensor:
+    """[n] -> [T, L] contiguous chunks (lane j covers [j*T, (j+1)*T)).  The
+    result is the transpose of a contiguous [L, T] tensor."""
+    n = arr.shape[0]
+    t = -(-n // num_lanes) if n else 1
+    arr = torch.nn.functional.pad(arr, (0, t * num_lanes - n))
+    return arr.reshape(num_lanes, t).T
+
+
+def lane_merge(lanes: torch.Tensor, n: int) -> torch.Tensor:
+    """[T, L] -> [n], inverse of lane_split."""
+    return lanes.T.reshape(-1)[:n]
+
+
+def lane_active(t_steps: int, lengths: torch.Tensor) -> torch.Tensor:
+    """[T, L] bool active mask from per-lane lengths [L]."""
+    return torch.arange(t_steps, dtype=torch.int64,
+                        device=lengths.device)[:, None] < lengths[None, :]
 
 
 def quantize_counts(counts: torch.Tensor) -> torch.Tensor:

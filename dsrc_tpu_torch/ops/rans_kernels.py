@@ -51,7 +51,8 @@ class LaunchCounter:
 
 
 LAUNCHES: Dict[str, LaunchCounter] = {
-    "rans_encode": LaunchCounter(), "rans_decode": LaunchCounter()}
+    "rans_encode": LaunchCounter(), "rans_decode": LaunchCounter(),
+    "ctx_decode": LaunchCounter()}
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +83,9 @@ _SIGNATURES = {
                                       _I, _P)),
     "dsrc_rans_decode": ("rans_dec", (_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _P, _I, _P)),
+    "dsrc_ctx_decode": ("ctx_dec", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _P, _P, _I, _P)),
 }
 
 

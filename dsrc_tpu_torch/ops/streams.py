@@ -89,6 +89,19 @@ def deserialize_rans(r: BitReader) -> Tuple[int, np.ndarray, np.ndarray,
     return n, payload, states, nwords
 
 
+def stream_tensors(payload: np.ndarray, states: np.ndarray, num_lanes: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A deserialized stream as int32 tensors on `device`: the payload with
+    zero rows added up to num_lanes, the u32 states as int32 bits."""
+    if payload.shape[0] < num_lanes:
+        payload = np.pad(payload,
+                         ((0, num_lanes - payload.shape[0]), (0, 0)))
+    return (torch.from_numpy(np.ascontiguousarray(payload, np.int32))
+            .to(device),
+            torch.from_numpy(np.ascontiguousarray(states).view(np.int32))
+            .to(device))
+
+
 def pack_ints(w: BitWriter, vals: np.ndarray) -> None:
     """Bit-packed (count, min, width, payload) integer vector — the
     reference's bit_length(max-min) trick for varying lengths

@@ -24,6 +24,7 @@ from dsrc_tpu_torch import convert
 from dsrc_tpu_torch.config import InputParameters
 from dsrc_tpu_torch.models import block as TB
 from dsrc_tpu_torch.parallel import uniform_pipeline as TUP
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 BLOCK = 1 << 17

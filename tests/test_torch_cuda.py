@@ -1,5 +1,5 @@
-"""Kernels K1 (rANS encode) and K2 (rANS decode) against their plain
-PyTorch versions, on an NVIDIA card.  Marked `cuda`: they skip where torch
+"""Kernels K1 (rANS encode), K2 (rANS decode) and K3 (context-model band
+decode) against their plain PyTorch versions, on an NVIDIA card.  Marked `cuda`: they skip where torch
 sees no CUDA device.  On the card, chip_smoke.py runs the same checks at
 the main path's shapes; run these with
 
@@ -204,3 +204,175 @@ def test_main_path_on_the_card_counts_launches(cuda):
                                        out)
     assert out.getvalue() == data
     assert RK.launch_counts()["rans_decode"] == 6
+
+
+# --------------------------------------------------------------------------
+# K3 (context-model band decode) and A19 through K2
+# --------------------------------------------------------------------------
+
+def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed):
+    """A stream of `lanes` lanes of t_steps steps coded by the port's own
+    encoder in one of K3's modes: (payload left-aligned, states, lengths,
+    num_ctx, CtxMode, aux [L, T] or None, edges, symbols [T, L], active)."""
+    from dsrc_tpu_torch.models import quality as Q
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops.rans import lane_active
+    from dsrc_tpu_torch.ops.streams import deserialize_rans, serialize_rans
+    from dsrc_tpu_torch.utils.bitio import BitReader, BitWriter
+    rng = np.random.default_rng(seed)
+    p = rng.dirichlet(np.full(nsym, 0.4))
+    syms = torch.from_numpy(rng.choice(nsym, (t_steps, lanes), p=p)
+                            .astype(np.int64))
+    lengths = torch.from_numpy(rng.integers(0, t_steps + 1, lanes)
+                               .astype(np.int32))
+    lengths[0] = t_steps
+    active = lane_active(t_steps, lengths)
+    syms = torch.where(active, syms, 0)
+    edges = C.band_edges(t_steps)
+    sbits = max(1, (nsym - 1).bit_length())
+    aux = None
+    if mode_kind == CK.MODE_HISTORY:
+        order = max(1, 12 // sbits)
+        mode = CK.CtxMode(CK.MODE_HISTORY, sbits=sbits,
+                          cmask=(1 << (order * sbits)) - 1)
+        num_ctx = 1 << (order * sbits)
+        ctx = C.history_ctx_lanes(syms, order, sbits)
+    elif mode_kind == CK.MODE_PRECOMPUTED:
+        mode, num_ctx = CK.CtxMode(CK.MODE_PRECOMPUTED), 37
+        ctx = torch.from_numpy(rng.integers(0, num_ctx, (t_steps, lanes)))
+        ctx = torch.where(active, ctx, 0)
+        aux = ctx.T
+    else:
+        # records that start at lane starts and mid-lane; orders 3 and 6
+        # give lags wider than qbits when qbits <= 2
+        lens = torch.from_numpy(rng.integers(1, 40, t_steps * lanes)
+                                .astype(np.int32))
+        num_ctx, mode, reset, bucket = Q.ctxq_model(
+            lens, t_steps * lanes, 6 if nsym <= 4 else 2, nsym, lanes,
+            1 << 20)
+        ctx = Q.ctxq_contexts(syms, reset, bucket, mode)
+        aux = Q.ctxq_aux(reset, bucket)
+    payload, nwords, states = C.encode_ctx_lanes(
+        syms, active, torch.where(active, ctx, 0), num_ctx, nsym, edges)
+    w = BitWriter()
+    serialize_rans(w, 1, payload, nwords, states)
+    _n, pl, st, _nw = deserialize_rans(BitReader(w.getvalue()))
+    to = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return (to(pl), to(st.view(np.int32)), lengths.to(device), num_ctx, mode,
+            None if aux is None else aux.to(torch.int32).contiguous()
+            .to(device), edges, syms, active)
+
+
+@pytest.mark.parametrize("mode_kind", [0, 1, 2])
+@pytest.mark.parametrize("lanes,t_steps,nsym", [(1, 1, 4), (33, 17, 64),
+                                                (2048, 40, 256),
+                                                (33, 300, 4)])
+def test_k3_equals_plain_in_each_mode(cuda, mode_kind, lanes, t_steps,
+                                      nsym):
+    """K3 against its plain version band by band (T = 1 and 17; bands
+    0-16, 16-32, 32-40 across edges; L = 1, 33, 2048; A = 4, 64, 256), and
+    the whole decode against the encoded symbols."""
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs, quantize_counts
+    pl, st, lengths, num_ctx, mode, aux, edges, syms, active = _ctx_case(
+        cuda, mode_kind, lanes, t_steps, nsym, 40 + mode_kind)
+    x, w = st.clone(), torch.zeros(lanes, dtype=torch.int32, device=cuda)
+    c = torch.zeros_like(w)
+    osym = torch.zeros((lanes, t_steps), dtype=torch.int32, device=cuda)
+    octx = torch.zeros_like(osym)
+    steps = torch.arange(t_steps, device=cuda)
+    hist = torch.zeros(num_ctx * nsym, dtype=torch.int64, device=cuda)
+    for t0, t1 in zip(edges[:-1], edges[1:]):
+        cum = cum_from_freqs(quantize_counts(hist.view(num_ctx, nsym))) \
+            .contiguous()
+        ref = [v.clone() for v in (x, w, c, osym, octx)]
+        CK.ctx_decode_band_plain(pl, *ref[:3], lengths, cum, aux, *ref[3:],
+                                 t0, t1, mode)
+        CK.ctx_decode_band(pl, x, w, c, lengths, cum, aux, osym, octx, t0,
+                           t1, mode)
+        torch.cuda.synchronize()
+        for got, want in zip((x, w, c, osym, octx), ref):
+            assert torch.equal(got, want)
+        act = steps[None, t0:t1] < lengths[:, None]
+        hist += C.hist_update(octx[:, t0:t1].to(torch.int64) * nsym
+                              + osym[:, t0:t1], act, num_ctx * nsym)
+    assert torch.equal(torch.where(active.to(cuda), osym.T, 0),
+                       syms.to(torch.int32).to(cuda))
+
+
+def test_k3_word_pointer_at_the_payload_end(cuda):
+    """A lane whose word pointer starts at and past the payload's end (words
+    there read 0), with random states and tables: K3 equals its plain
+    version, and reads nothing outside its buffers."""
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    rng = np.random.default_rng(5)
+    lanes, w, t_steps, nsym, nctx = 40, 3, 64, 64, 9
+    pl = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (lanes, w))
+                          .astype(np.int32)).to(cuda)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, lanes)
+                         .astype(np.int32)).to(cuda)
+    wptr = torch.from_numpy(np.array([2 * w, 2 * w - 1, 2 * w + 5, 0] * 10,
+                                     np.int32)).to(cuda)
+    table = rng.integers(1, 400, (nctx, nsym)).astype(np.int64)
+    table = (table * (1 << 14) // table.sum(1, keepdims=True)).astype(np.int32)
+    cum = cum_from_freqs(torch.from_numpy(table)).to(cuda).contiguous()
+    lengths = torch.full((lanes,), t_steps, dtype=torch.int32, device=cuda)
+    aux = torch.from_numpy(rng.integers(-3, nctx + 3, (lanes, t_steps))
+                           .astype(np.int32)).to(cuda)
+    mode = CK.CtxMode(CK.MODE_PRECOMPUTED)
+    osym = torch.zeros((lanes, t_steps), dtype=torch.int32, device=cuda)
+    args = [x, wptr, torch.zeros_like(x), lengths, cum, aux, osym,
+            torch.zeros_like(osym)]
+    ref = [a.clone() for a in args]
+    CK.ctx_decode_band(pl, *args, 0, t_steps, mode)
+    CK.ctx_decode_band_plain(pl, *ref, 0, t_steps, mode)
+    torch.cuda.synchronize()
+    for got, want in zip(args, ref):
+        assert torch.equal(got, want)
+
+
+def test_a19_through_k2_on_19_symbols(cuda):
+    from dsrc_tpu_torch.models import dna as DNA
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    rng = np.random.default_rng(19)
+    cap, lanes = 1 << 16, 16
+    n = cap - 777
+    syms = np.zeros(cap, np.int32)
+    syms[:n] = rng.choice(19, n, p=rng.dirichlet(np.full(19, 0.6)))
+    syms = torch.from_numpy(syms).to(cuda)
+    payload, nwords, states, freqs = DNA._a19_encode(syms, n, 19, lanes, cap)
+    # K1's payload is right-aligned: lane j starts at word 2*Wp - nwords[j]
+    args = (payload, states, (2 * payload.shape[1] - nwords).to(torch.int32),
+            cum_from_freqs(freqs)[None, :].contiguous(), n, cap // lanes)
+    got = RK.rans_decode(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, RK.rans_decode_plain(*args))
+    assert torch.equal(got.reshape(-1)[:n], syms[:n])
+
+
+def test_one_m1_block_round_trip(cuda):
+    """One -m1 (-d2 -q2) block on the card: byte-exact, through K1 and
+    K3, and the same archive as the port writes on the CPU."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils.synth import make_fastq_realistic
+    data = make_fastq_realistic(3000, 100, seed=91)
+    params = InputParameters(dna_compression_level=2,
+                             quality_compression_level=2,
+                             fastq_block_size_bytes=1 << 20)
+    RK.reset_launch_counts()
+    arch, out = io.BytesIO(), io.BytesIO()
+    DsrcModule(params, device=cuda).compress(io.BytesIO(data), arch)
+    arch.seek(0)
+    DsrcModule(params, device=cuda).decompress(arch, out)
+    assert out.getvalue() == data
+    counts = RK.launch_counts()
+    assert counts["rans_encode"] > 0 and counts["ctx_decode"] > 0
+    cpu_arch = io.BytesIO()
+    DsrcModule(params, device="cpu").compress(io.BytesIO(data), cpu_arch)
+    assert cpu_arch.getvalue() == arch.getvalue()

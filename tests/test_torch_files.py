@@ -1,7 +1,8 @@
 """Whole-file behaviour of the PyTorch port on the CPU: the golden archives
 decode byte-exactly, archives cross-decode between the port and dsrc_tpu in
-both directions, the CLI round-trips, and block classes this slice does not
-cover raise DsrcException instead of writing other bytes."""
+both directions, the CLI round-trips, and what the port does not cover yet
+(colour space, SEMI title mode 0, -r, distributed) raises DsrcException
+instead of writing other bytes."""
 import io
 import os
 
@@ -14,6 +15,7 @@ from dsrc_tpu_torch import cli
 from dsrc_tpu_torch.api import DsrcModule
 from dsrc_tpu_torch.config import DsrcException, InputParameters
 from dsrc_tpu_torch.utils.synth import make_fastq_fast, make_fastq_realistic
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 BLOCK = 1 << 17
@@ -86,21 +88,45 @@ def test_cli_rejects_what_the_slice_does_not_cover(tmp_path, capsys):
                                 dict(lossy_quality=True),
                                 dict(calculate_crc32=True)])
 def test_generic_settings_raise(kw):
-    with pytest.raises(DsrcException, match="GENERIC"):
-        _port(**kw).compress(io.BytesIO(_read("golden_uniform.fastq")),
-                             io.BytesIO())
+    """GENERIC settings code fixed-width reads as GENERIC blocks now; they
+    raise only on colour-space (SOLiD) input, which is not ported."""
+    data = b"".join(_read("golden_uniform.fastq").splitlines(True)[:800])
+    arch, out = io.BytesIO(), io.BytesIO()
+    _port(**kw).compress(io.BytesIO(data), arch)
+    _port(**kw).decompress(io.BytesIO(arch.getvalue()), out)
+    if kw.get("lossy_quality"):
+        assert out.getvalue().split(b"\n")[0::4] == data.split(b"\n")[0::4]
+    else:
+        assert out.getvalue() == data
+    solid = b"".join(b"@s%d\nT%s\n+\n%s\n" % (i, b"0123." * 6, b"I" * 30)
+                     for i in range(40))
+    with pytest.raises(DsrcException, match="colour-space"):
+        _port(**kw).compress(io.BytesIO(solid), io.BytesIO())
 
 
 def test_generic_inputs_and_archives_raise():
+    """Variable-length reads and the golden GENERIC archive go through the
+    GENERIC class now; a colour-space GENERIC block still raises."""
+    from dsrc_tpu_torch.models import block as TB
     variable = make_fastq_fast(300, 50, seed=63)[:-1] + b"\n"
     lines = variable.split(b"\n")
     lines[1] = lines[1][:20]                     # one short read
     lines[3] = lines[3][:20]
-    with pytest.raises(DsrcException, match="GENERIC"):
-        _port().compress(io.BytesIO(b"\n".join(lines)), io.BytesIO())
-    with pytest.raises(DsrcException, match="GENERIC"):
-        DsrcModule(device="cpu").decompress(
-            os.path.join(DATA, "golden_generic.xfqz"), io.BytesIO())
+    data = b"\n".join(lines)
+    arch, out = io.BytesIO(), io.BytesIO()
+    _port().compress(io.BytesIO(data), arch)
+    _port().decompress(io.BytesIO(arch.getvalue()), out)
+    assert out.getvalue() == data
+    out = io.BytesIO()
+    DsrcModule(device="cpu").decompress(
+        os.path.join(DATA, "golden_generic.xfqz"), out)
+    assert out.getvalue() == _read("golden_generic.fastq")
+    codec = TB.BlockCodec(TB.BlockShape.for_block_size(BLOCK),
+                          InputParameters().to_settings(),
+                          TB.DatasetType(quality_offset=33), device="cpu")
+    blob = bytes([TB.BLOCK_GENERIC, 1, TB.FLAG_COLOR_SPACE, 33])
+    with pytest.raises(DsrcException, match="colour-space"):
+        codec.decompress(blob)
 
 
 def test_free_text_titles_raise():

@@ -19,6 +19,7 @@ from dsrc_tpu_torch.ops import parser as TPARSE
 from dsrc_tpu_torch.ops import rans as TR
 from dsrc_tpu_torch.ops import rans_kernels as RK
 from dsrc_tpu_torch.parallel import uniform_pipeline as TUP
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

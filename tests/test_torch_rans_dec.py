@@ -10,6 +10,7 @@ import torch
 from dsrc_tpu_torch.ops import cuda_build
 from dsrc_tpu_torch.ops import rans_kernels as RK
 from dsrc_tpu_torch.ops.rans import M, cum_from_freqs
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rows(nsym, rng):

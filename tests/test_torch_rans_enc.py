@@ -21,6 +21,7 @@ from dsrc_tpu_torch.ops.rans import M, payload_pairs
 from dsrc_tpu_torch.parallel import uniform_pipeline as UP
 
 from torch_enc_inputs import enc_models, every_freq_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 U32 = (1 << 32) - 1
 FREQS = torch.arange(1, M + 1, dtype=torch.int64)       # [1, 2^14]
