@@ -24,7 +24,12 @@ script exits non-zero without printing a result:
              pair (mode 0) and title text (mode 1) streams of one 8 MB
              block, K3 on every band; A19 (K4, served by K2 at P = 1) on a
              19-symbol stream.  Then K3's and K1's times per band and per
-             stream at the quality and DNA shapes of a 64 MB block.
+             stream at the quality and DNA shapes of a 64 MB block, with
+             K3's route (where its table rows live) and its chain floor
+             (the warp of lane 0 alone on the last band), and at the
+             shapes of a
+             256 MB -m2 block (synthetic streams from a seed, decoded to
+             their encoded symbols; no plain version at that size).
   4 semi     a 64 MB SEMI file (variable titles, 8 blocks of 8 MB) through
              DsrcModule(device="cuda"): compress, decompress, byte compare
   5 uniform  the same with a 16 MB fixed-width (UNIFORM) file
@@ -410,7 +415,6 @@ def ctx_streams(device, block: bytes, params):
     from dsrc_tpu_torch.models import tag as TAG
     from dsrc_tpu_torch.ops import ctx as C
     from dsrc_tpu_torch.ops import ctx_kernels as CK
-    from dsrc_tpu_torch.ops.rans import lane_active, lane_lengths, lane_split
     arr = np.frombuffer(block, np.uint8)
     shape = B.BlockShape.for_block_size(params.fastq_block_size_bytes)
     settings = params.to_settings()
@@ -419,27 +423,8 @@ def ctx_streams(device, block: bytes, params):
     cap = shape.cap
     out = []
 
-    def add(name, mode, num_ctx, nsym, edges, sym, n, ctx=None, aux=None,
-            lanes_n=None):
-        lanes = lane_split(sym.to(torch.int64), lanes_n)
-        t_steps = lanes.shape[0]
-        lengths = lane_lengths(n, lanes_n, t_steps, device)
-        active = lane_active(t_steps, lengths)
-        lanes = torch.where(active, lanes, 0)
-        if mode.kind == CK.MODE_HISTORY:
-            ctx = C.history_ctx_lanes(lanes, *ctx)
-        elif mode.kind == CK.MODE_PRECOMPUTED:
-            ctx = lane_split(ctx, lanes_n)
-            aux = torch.where(active, ctx, 0).T
-        else:
-            reset, bucket = aux
-            ctx = Q.ctxq_contexts(lanes, reset, bucket, mode)
-            aux = Q.ctxq_aux(reset, bucket)
-        out.append(dict(name=name, mode=mode, num_ctx=num_ctx, nsym=nsym,
-                        edges=edges, lanes=lanes, active=active,
-                        ctx=torch.where(active, ctx, 0), lengths=lengths,
-                        aux=None if aux is None else
-                        aux.to(torch.int32).contiguous(), n=n))
+    def add(*args, **kw):
+        out.append(ctx_stream(*args, **kw))
 
     # quality, CTX scheme at order 2
     n = g.q_total
@@ -479,6 +464,79 @@ def ctx_streams(device, block: bytes, params):
                                    (0, nc - n))).to(device)
     add("tag_text", CK.CtxMode(CK.MODE_PRECOMPUTED), TAG.TEXT_NUM_CTX, 256,
         C.band_edges(nc // lanes_n), text, n, ctx=tctx, lanes_n=lanes_n)
+    return out
+
+
+def ctx_stream(name, mode, num_ctx, nsym, edges, sym, n, ctx=None, aux=None,
+               lanes_n=None):
+    """One context-model stream as ctx_streams describes it, from the flat
+    symbols `sym` (n valid) over lanes_n lanes.  ctx: (order, sym_bits)
+    in mode 0, the flat context ids in mode 1; aux: (reset, bucket) [T, L]
+    in mode 2."""
+    import torch
+    from dsrc_tpu_torch.models import quality as Q
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops.rans import lane_active, lane_lengths, lane_split
+    device = sym.device
+    lanes = lane_split(sym.to(torch.int64), lanes_n)
+    t_steps = lanes.shape[0]
+    lengths = lane_lengths(n, lanes_n, t_steps, device)
+    active = lane_active(t_steps, lengths)
+    lanes = torch.where(active, lanes, 0)
+    if mode.kind == CK.MODE_HISTORY:
+        ctx = C.history_ctx_lanes(lanes, *ctx)
+    elif mode.kind == CK.MODE_PRECOMPUTED:
+        ctx = lane_split(ctx, lanes_n)
+        aux = torch.where(active, ctx, 0).T
+    else:
+        reset, bucket = aux
+        ctx = Q.ctxq_contexts(lanes, reset, bucket, mode)
+        aux = Q.ctxq_aux(reset, bucket)
+    return dict(name=name, mode=mode, num_ctx=num_ctx, nsym=nsym,
+                edges=edges, lanes=lanes, active=active,
+                ctx=torch.where(active, ctx, 0), lengths=lengths,
+                aux=None if aux is None else
+                aux.to(torch.int32).contiguous(), n=n)
+
+
+def m2_streams(device, seed: int = 92):
+    """Synthetic quality and DNA-pair streams at the shapes of one 256 MB
+    -m2 block (-d3 -q2; about 2^27 quality values of 100-base reads):
+    quality in mode 2 (T = 65,536, L = 2,048, A = 64, CTX order 2: 4,096
+    contexts, lags (6, 2)), DNA pairs in mode 0 (T = 32,768, A = 16, order
+    2: 256 contexts).  Symbols are i.i.d. from a skewed distribution made
+    from numpy with `seed` (the chain's work does not depend on what the
+    model learns)."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.models import quality as Q
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    rng = np.random.default_rng(seed)
+
+    def skewed(n, nsym):
+        # uniform bytes through a skewed 256-entry table of symbols
+        cdf = np.cumsum(rng.dirichlet(np.full(nsym, 0.5))) * 256
+        lut = np.minimum(np.searchsorted(cdf, np.arange(256), side="right"),
+                         nsym - 1).astype(np.uint8)
+        return torch.from_numpy(lut[rng.integers(0, 256, n, np.uint8)]) \
+            .to(device)
+
+    lanes_n, out = 2048, []
+    n = 65536 * lanes_n
+    lens = torch.full((-(-n // 100),), 100, dtype=torch.int32, device=device)
+    num_ctx, mode, reset, bucket = Q.ctxq_model(lens, n, 2, 64, lanes_n, n)
+    if num_ctx != 4096 or mode.lags != (6, 2):
+        raise AssertionError(f"-m2 quality model {num_ctx} {mode.lags}")
+    out.append(ctx_stream("quality", mode, num_ctx, 64,
+                          C.band_edges(n // lanes_n), skewed(n, 64), n,
+                          aux=(reset, bucket), lanes_n=lanes_n))
+    n = 32768 * lanes_n
+    out.append(ctx_stream("dna_pairs", CK.CtxMode(CK.MODE_HISTORY, sbits=4,
+                                                  cmask=(1 << 8) - 1),
+                          256, 16, C.band_edges(n // lanes_n),
+                          skewed(n, 16), n, ctx=(2, 4), lanes_n=lanes_n))
     return out
 
 
@@ -533,8 +591,7 @@ def ctx_checks(device, streams, shape_name: str, timed: bool,
                 "mode": st["mode"].kind, "T": t_steps, "L": l, "A": nsym,
                 "C": st["num_ctx"], "n": st["n"], "bands": len(st["edges"]) - 1,
                 "table_bytes": st["num_ctx"] * (nsym + 1) * 4,
-                "table_in_shared_memory":
-                    st["num_ctx"] * (nsym + 1) * 4 <= CK.CTX_SMEM_BUDGET}
+                "route": CK.ctx_route(st["num_ctx"], nsym)}
         if check_plain:
             plain = RK.rans_encode_plain(freq, cum, active)
             e1 = max(_err(a, b) for a, b in zip(enc, plain))
@@ -594,6 +651,17 @@ def ctx_checks(device, streams, shape_name: str, timed: bool,
                 state = (x, wptr, carry)
                 rec["ms"] = time_ms(lambda: band(state), 5)
                 rec["device_ms"] = time_device_ms(lambda: band(state), 5)
+                if b == len(st["edges"]) - 2:
+                    # the chain floor: the warp of lane 0 alone (its
+                    # 32/t lanes) on the last band
+                    w = 32 // CK.row_layout(nsym)[0]
+                    one = (payload[:w], st["lengths"][:w], cumt,
+                           None if st["aux"] is None else st["aux"][:w])
+                    ms1 = time_device_ms(lambda: band(
+                        (x[:w], wptr[:w], carry[:w]), args=one,
+                        outs=(osym[:w].clone(), octx[:w].clone())), 5)
+                    line["k3_one_warp_alone_ns_per_step"] = (
+                        None if ms1 is None else ms1 * 1e6 / (t1 - t0))
                 share = int(active[t0:t1].sum()) / max(1, int(active.sum()))
                 nb, no = k3_bytes_ops(st, payload_bytes * share, t0, t1,
                                       cumt.numel())
@@ -620,6 +688,11 @@ def ctx_checks(device, streams, shape_name: str, timed: bool,
             line["k3_stream_bound_ms"], line["k3_stream_bound_by"] = \
                 bound(nb, no)
             line["k3_ns_per_step"] = line["k3_ms"] * 1e6 / t_steps
+            line["k3_device_ns_per_step"] = line["k3_device_ms"] * 1e6 / \
+                t_steps
+            ns1 = line.get("k3_one_warp_alone_ns_per_step")
+            line["k3_chain_floor_ms"] = (None if ns1 is None
+                                         else ns1 * t_steps / 1e6)
         emit(line)
         records[st["name"]] = dict(line, payload=payload, states=states,
                                    stream=st)
@@ -929,6 +1002,13 @@ def main() -> int:
                                             m1_params(64 * MB)),
                         "64MB", timed=True, check_plain=False)
     k3_plain = k3_plain_ms(recs64["quality"])
+    recs256 = ctx_checks(device, m2_streams(device), "256MB_m2", timed=True,
+                         check_plain=False)
+    m2_lines = {k: {f: r[f] for f in ("route", "k1_device_ms",
+                                     "k3_device_ms", "k3_chain_floor_ms")}
+                for k, r in recs256.items()}
+    del recs256
+    torch.cuda.empty_cache()
     records["rans_encode"]["max_abs_err"] = max(
         [records["rans_encode"]["max_abs_err"]]
         + [r["k1_max_abs_err"] for r in recs8.values()])
@@ -957,7 +1037,13 @@ def main() -> int:
     records["ctx_decode"] = dict(
         max_abs_err=max(r["k3_max_abs_err"] for r in recs8.values()),
         ms=q64["k3_ms"], plain_ms=k3_plain, bound_ms=q64["k3_stream_bound_ms"],
-        bound_by=q64["k3_stream_bound_by"])
+        bound_by=q64["k3_stream_bound_by"],
+        # where each stream's table rows live, and the serial chain's floor
+        # (the warp of lane 0 alone) beside the bytes bound, which a serial
+        # decode cannot reach
+        route={f"{size}_{k}": r["route"] for size, recs in
+               (("8MB", recs8), ("64MB", recs64)) for k, r in recs.items()},
+        chain_floor_ms=q64["k3_chain_floor_ms"], m2_shapes=m2_lines)
     records["a19_decode"] = dict(
         max_abs_err=a19["k2_max_abs_err"], ms=a19["ms"],
         plain_ms=a19["plain_ms"], bound_ms=a19["bound_ms"],
@@ -979,6 +1065,9 @@ def main() -> int:
                     bound_by=records[k]["bound_by"], library_ms=None)
                for k in ("rans_encode", "rans_decode", "ctx_decode",
                          "a19_decode")]
+    kernels[2].update(table_routes=records["ctx_decode"]["route"],
+                      chain_floor_ms=records["ctx_decode"]["chain_floor_ms"],
+                      m2_shapes=records["ctx_decode"]["m2_shapes"])
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

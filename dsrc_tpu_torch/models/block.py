@@ -681,7 +681,7 @@ class BlockCodec:
             to_numpy(qual[:q_total]), qual_len_np, None, False,
             ds.plus_repetition)
         if crcs is not None:
-            got = _stream_crcs_from_text(text)
+            got = _stream_crcs_from_text(text, ds)
             if got != crcs:
                 raise DsrcException(
                     "CRC32 mismatch on block self-verification "
@@ -727,14 +727,17 @@ def _backward_transform(dna: torch.Tensor, qual_vals: torch.Tensor, n: int,
     return seq, qual
 
 
-def _stream_crcs_from_text(text: np.ndarray):
+def _stream_crcs_from_text(text: np.ndarray, ds):
     """CRC32 of the tag / sequence / quality streams of decoded FASTQ text
-    (the streams compress hashed)."""
+    (the streams compress hashed; a colour-space dataset `ds` hashes no
+    primer base)."""
     nl_mask = text == 10
     line_id = np.cumsum(nl_mask) - nl_mask
     lmod = line_id % 4
     is_start = np.concatenate([[True], nl_mask[:-1]])
     t_mask = (lmod == 0) & ~nl_mask & ~is_start          # skip '@'
     s_mask = (lmod == 1) & ~nl_mask
+    if ds.color_space:
+        s_mask &= ~is_start                              # skip primer base
     q_mask = (lmod == 3) & ~nl_mask
     return (crc32(text[t_mask]), crc32(text[s_mask]), crc32(text[q_mask]))

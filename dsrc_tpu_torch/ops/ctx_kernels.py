@@ -14,7 +14,7 @@ or raises.  Each launch adds one to LAUNCHES["ctx_decode"].
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,10 +27,18 @@ MODE_HISTORY = 0       # ctx = carry (order-k packed history)
 MODE_PRECOMPUTED = 1   # ctx = aux[lane, t]
 MODE_QUALITY = 2       # ctx = coarse(history since the record start) | bucket
 
-# K3 stages a table in shared memory up to this many bytes (the default
-# per-block limit, so several blocks still share an SM); larger tables are
-# read from device memory, where L2 holds them.
-CTX_SMEM_BUDGET = 48 * 1024
+# K3 reads a table as rows of packed words, entry j of row r being
+# cum[r][j] | cum[r][j + 1] << 16 for j < A and 0xFFFFFFFF after
+# (row_layout(A) gives the threads a lane and the entries a thread; a row
+# has their product).  Where the rows live (ctx_route):
+#   "shared":  packed into each block's shared memory by the kernel, when
+#              they take at most CTX_SMEM_BUDGET bytes;
+#   "global":  in device memory (rows_packed, one torch pass a band), where
+#              L2 holds them.
+# The budget leaves two blocks of 8 warps on an SM (2 x 96 KB of 227 KB),
+# so the 2,048 lanes of a stream stay resident on 132 SMs.
+CTX_SMEM_BUDGET = 96 * 1024
+ROUTES = ("shared", "global")
 MAX_NSYM = 256
 
 
@@ -124,25 +132,53 @@ def ctx_decode_band_plain(payload: torch.Tensor, x: torch.Tensor,
     carry.copy_(cr.to(torch.int32))
 
 
-def row_groups(nsym: int) -> int:
-    """32-entry groups K3 reads a row of nsym + 1 entries in: entries
-    1..nsym, rounded up to a power of two (1, 2, 4 or 8)."""
-    g = -(-nsym // 32)
-    return 1 << (g - 1).bit_length()
+def row_layout(nsym: int) -> Tuple[int, int]:
+    """(threads a lane, packed entries a thread) of K3 at an alphabet of
+    nsym symbols: 8 threads (4 lanes a warp) up to 8 symbols, 16 (2 lanes)
+    up to 64, else 32; entries the power of two that covers nsym."""
+    threads = 8 if nsym <= 8 else (16 if nsym <= 64 else 32)
+    g = -(-nsym // threads)
+    return threads, 1 << (g - 1).bit_length()
+
+
+def route_smem_bytes(route: str, nctx: int, nsym: int) -> int:
+    """Shared memory a K3 block asks for on a route."""
+    threads, entries = row_layout(nsym)
+    return nctx * 4 * threads * entries if route == "shared" else 0
+
+
+def ctx_route(nctx: int, nsym: int) -> str:
+    """Where K3 reads the rows of a [nctx, nsym + 1] table: "shared" when
+    they fit CTX_SMEM_BUDGET, else "global"."""
+    if route_smem_bytes("shared", nctx, nsym) <= CTX_SMEM_BUDGET:
+        return "shared"
+    return "global"
+
+
+def rows_packed(cum: torch.Tensor, width: int) -> torch.Tensor:
+    """K3's rows of a [C, A+1] int32 table, `width` >= A entries a row:
+    [C, width] int32 holding the u32 bits of cum[:, j] | cum[:, j+1] << 16,
+    then 0xFFFFFFFF (-1)."""
+    nsym = cum.shape[1] - 1
+    packed = cum[:, :-1] | (cum[:, 1:] << 16)
+    return torch.nn.functional.pad(packed, (0, width - nsym),
+                                   value=-1).contiguous()
 
 
 def ctx_decode_band(payload: torch.Tensor, x: torch.Tensor,
                     wptr: torch.Tensor, carry: torch.Tensor,
                     lengths: torch.Tensor, cum: torch.Tensor, aux,
                     osym: torch.Tensor, octx: torch.Tensor, t0: int, t1: int,
-                    mode: CtxMode) -> None:
+                    mode: CtxMode, route: Optional[str] = None) -> None:
     """Decode steps [t0, t1) of every lane with the table cum.
 
     payload [L, W] int32 (u16 word pairs, low half first); x, wptr, carry
     [L] int32 (x holds u32 bits), updated in place; lengths [L] int32;
-    cum [C, A+1] int32, non-decreasing rows with cum[:, 0] = 0; aux
-    [L, T] int32 for the modes that read it (None otherwise); osym, octx
-    [L, T] int32 receive the band's symbols and context ids."""
+    cum [C, A+1] int32, non-decreasing rows with cum[:, 0] = 0 and entries
+    below 2^16; aux [L, T] int32 for the modes that read it (None
+    otherwise); osym, octx [L, T] int32 receive the band's symbols and
+    context ids.  route: where the kernel reads the rows (ROUTES; default
+    ctx_route(C, A)); a route the card refuses raises."""
     dev = payload.device
     _check(payload, "payload", torch.int32, 2, dev)
     for t, name in ((x, "x"), (wptr, "wptr"), (carry, "carry"),
@@ -171,6 +207,9 @@ def ctx_decode_band(payload: torch.Tensor, x: torch.Tensor,
             raise DsrcException("ctx_decode: aux must be [L, T]")
     if len(mode.lags) > 4:
         raise DsrcException("ctx_decode: at most 4 lags")
+    route = ctx_route(nctx, nsym) if route is None else route
+    if route not in ROUTES:
+        raise DsrcException(f"ctx_decode: unknown route {route!r}")
     if dev.type == "cpu":
         ctx_decode_band_plain(payload, x, wptr, carry, lengths, cum, aux,
                               osym, octx, t0, t1, mode)
@@ -180,14 +219,16 @@ def ctx_decode_band(payload: torch.Tensor, x: torch.Tensor,
     if lanes == 0 or t0 == t1:
         return
     lags = sum(c << (8 * k) for k, c in enumerate(mode.lags))
-    shared = cum.numel() * 4 <= CTX_SMEM_BUDGET
+    threads, entries = row_layout(nsym)
+    rows = rows_packed(cum, threads * entries) if route == "global" else None
     rc = _entry("dsrc_ctx_decode")(
         payload.data_ptr(), payload.shape[1], x.data_ptr(), wptr.data_ptr(),
-        carry.data_ptr(), lengths.data_ptr(), cum.data_ptr(), nctx, nsym,
+        carry.data_ptr(), lengths.data_ptr(), cum.data_ptr(),
+        None if rows is None else rows.data_ptr(), nctx, nsym,
         aux.data_ptr() if mode.uses_aux else None, t0, t1, t_steps, lanes,
         mode.kind, mode.sbits, mode.cmask, mode.hb,
         mode.sbits if mode.kind == MODE_QUALITY else 0, len(mode.lags),
-        lags, row_groups(nsym), int(shared), osym.data_ptr(),
+        lags, threads, entries, ROUTES.index(route), osym.data_ptr(),
         octx.data_ptr(), dev.index or 0, _stream(dev))
     if rc != 0:
         raise DsrcException(f"ctx_decode kernel launch failed: CUDA error "

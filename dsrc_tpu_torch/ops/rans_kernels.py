@@ -83,9 +83,9 @@ _SIGNATURES = {
                                       _I, _P)),
     "dsrc_rans_decode": ("rans_dec", (_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _P, _I, _P)),
-    "dsrc_ctx_decode": ("ctx_dec", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _P, _P, _I, _P)),
+    "dsrc_ctx_decode": ("ctx_dec", (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _P, _P, _I, _P)),
 }
 
 

@@ -210,10 +210,12 @@ def test_main_path_on_the_card_counts_launches(cuda):
 # K3 (context-model band decode) and A19 through K2
 # --------------------------------------------------------------------------
 
-def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed):
+def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed, wide=False):
     """A stream of `lanes` lanes of t_steps steps coded by the port's own
     encoder in one of K3's modes: (payload left-aligned, states, lengths,
-    num_ctx, CtxMode, aux [L, T] or None, edges, symbols [T, L], active)."""
+    num_ctx, CtxMode, aux [L, T] or None, edges, symbols [T, L], active).
+    wide: mode 0 at an 8-bit history (256 x 16 at A = 16), mode 2 at the
+    -m1 block's sampling budget (4,096 x 64, lags (6, 2), at A = 64)."""
     from dsrc_tpu_torch.models import quality as Q
     from dsrc_tpu_torch.ops import ctx as C
     from dsrc_tpu_torch.ops import ctx_kernels as CK
@@ -233,7 +235,7 @@ def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed):
     sbits = max(1, (nsym - 1).bit_length())
     aux = None
     if mode_kind == CK.MODE_HISTORY:
-        order = max(1, 12 // sbits)
+        order = max(1, (8 if wide else 12) // sbits)
         mode = CK.CtxMode(CK.MODE_HISTORY, sbits=sbits,
                           cmask=(1 << (order * sbits)) - 1)
         num_ctx = 1 << (order * sbits)
@@ -250,7 +252,7 @@ def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed):
                                 .astype(np.int32))
         num_ctx, mode, reset, bucket = Q.ctxq_model(
             lens, t_steps * lanes, 6 if nsym <= 4 else 2, nsym, lanes,
-            1 << 20)
+            1 << (22 if wide else 20))
         ctx = Q.ctxq_contexts(syms, reset, bucket, mode)
         aux = Q.ctxq_aux(reset, bucket)
     payload, nwords, states = C.encode_ctx_lanes(
@@ -264,20 +266,29 @@ def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed):
             .to(device), edges, syms, active)
 
 
+# the most shared memory a block of the card can ask for
+SMEM_BLOCK_MAX = 227 * 1024
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
 @pytest.mark.parametrize("mode_kind", [0, 1, 2])
-@pytest.mark.parametrize("lanes,t_steps,nsym", [(1, 1, 4), (33, 17, 64),
-                                                (2048, 40, 256),
-                                                (33, 300, 4)])
+@pytest.mark.parametrize("lanes,t_steps,nsym,wide", [
+    (1, 1, 4, False), (33, 17, 64, False), (2048, 40, 256, False),
+    (33, 300, 4, False), (64, 300, 16, True), (64, 300, 64, True)])
 def test_k3_equals_plain_in_each_mode(cuda, mode_kind, lanes, t_steps,
-                                      nsym):
-    """K3 against its plain version band by band (T = 1 and 17; bands
-    0-16, 16-32, 32-40 across edges; L = 1, 33, 2048; A = 4, 64, 256), and
-    the whole decode against the encoded symbols."""
+                                      nsym, wide, route):
+    """K3 on each route against its plain version band by band (T = 1 and
+    17; bands 0-16, 16-32, 32-40 across edges; L = 1, 33, 64, 2048; A = 4,
+    16, 64, 256; lanes of length 0; mode 2 at 4,096 x 64 and with lags
+    wider than qbits at A = 4; mode 0 at 256 x 16), and the whole decode
+    against the encoded symbols.  A route whose shared memory the card
+    cannot grant raises."""
+    from dsrc_tpu_torch.config import DsrcException
     from dsrc_tpu_torch.ops import ctx as C
     from dsrc_tpu_torch.ops import ctx_kernels as CK
     from dsrc_tpu_torch.ops.rans import cum_from_freqs, quantize_counts
     pl, st, lengths, num_ctx, mode, aux, edges, syms, active = _ctx_case(
-        cuda, mode_kind, lanes, t_steps, nsym, 40 + mode_kind)
+        cuda, mode_kind, lanes, t_steps, nsym, 40 + mode_kind, wide)
     x, w = st.clone(), torch.zeros(lanes, dtype=torch.int32, device=cuda)
     c = torch.zeros_like(w)
     osym = torch.zeros((lanes, t_steps), dtype=torch.int32, device=cuda)
@@ -290,8 +301,13 @@ def test_k3_equals_plain_in_each_mode(cuda, mode_kind, lanes, t_steps,
         ref = [v.clone() for v in (x, w, c, osym, octx)]
         CK.ctx_decode_band_plain(pl, *ref[:3], lengths, cum, aux, *ref[3:],
                                  t0, t1, mode)
+        if CK.route_smem_bytes(route, num_ctx, nsym) > SMEM_BLOCK_MAX:
+            with pytest.raises(DsrcException, match="launch failed"):
+                CK.ctx_decode_band(pl, x, w, c, lengths, cum, aux, osym,
+                                   octx, t0, t1, mode, route)
+            return
         CK.ctx_decode_band(pl, x, w, c, lengths, cum, aux, osym, octx, t0,
-                           t1, mode)
+                           t1, mode, route)
         torch.cuda.synchronize()
         for got, want in zip((x, w, c, osym, octx), ref):
             assert torch.equal(got, want)
@@ -302,7 +318,8 @@ def test_k3_equals_plain_in_each_mode(cuda, mode_kind, lanes, t_steps,
                        syms.to(torch.int32).to(cuda))
 
 
-def test_k3_word_pointer_at_the_payload_end(cuda):
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_k3_word_pointer_at_the_payload_end(cuda, route):
     """A lane whose word pointer starts at and past the payload's end (words
     there read 0), with random states and tables: K3 equals its plain
     version, and reads nothing outside its buffers."""
@@ -327,7 +344,7 @@ def test_k3_word_pointer_at_the_payload_end(cuda):
     args = [x, wptr, torch.zeros_like(x), lengths, cum, aux, osym,
             torch.zeros_like(osym)]
     ref = [a.clone() for a in args]
-    CK.ctx_decode_band(pl, *args, 0, t_steps, mode)
+    CK.ctx_decode_band(pl, *args, 0, t_steps, mode, route)
     CK.ctx_decode_band_plain(pl, *ref, 0, t_steps, mode)
     torch.cuda.synchronize()
     for got, want in zip(args, ref):

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing dsrc_tpu_torch, every one of its
-modules, chip_smoke.py and k1_variants.py loads neither JAX nor anything
-of dsrc_tpu.
+modules, chip_smoke.py, k1_variants.py and k3_variants.py loads neither
+JAX nor anything of dsrc_tpu.
 
 Checked in a subprocess, because this test process has JAX loaded already
 (tests/conftest.py)."""
@@ -16,7 +16,7 @@ import dsrc_tpu_torch
 for m in pkgutil.walk_packages(dsrc_tpu_torch.__path__, "dsrc_tpu_torch."):
     if not m.name.endswith("__main__"):          # __main__ runs the CLI
         importlib.import_module(m.name)
-for script in ("chip_smoke", "k1_variants"):
+for script in ("chip_smoke", "k1_variants", "k3_variants"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dsrc_tpu_torch.api import DsrcModule
