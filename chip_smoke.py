@@ -38,14 +38,26 @@ script exits non-zero without printing a result:
              the card equal to the port's archive on the CPU; 8 MB round
              trips at -d0 -q0 on variable-length reads, -l -q2 on 4-level
              quality, -c, and DNA with more than 8 symbols (A19)
-  7 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
+  7 semi_mode0  -m0 on a 64 MB file whose read names carry an 8-base UMI
+             (a free-text field: every block SEMI title mode 0, the titles
+             through the tag coder, K1 and K3); one 8 MB block's archive on
+             the card equal to the port's archive of it on the CPU
+  8 colour   SOLiD reads (50 colours, '.' present): a 64 MB -m1 file (one
+             block), and 8 MB at -m1 (archive equal to the CPU's; K1 and K3
+             against their plain versions on every band of its CTX8P DNA
+             stream), -d0 -q0, -l (on its lossy fixed point) and -c
+  9 record_api  about 200,000 records through DsrcArchive(device="cuda")
+             and back in order; records across the block boundary of the
+             128 MB -m1 archive through read_records and through CLI -r
+ 10 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
              decode byte-exactly on the card, and compressing their inputs
              on the card writes the golden archives' exact bytes
-  8 profile  the SEMI round trip and one 64 MB -m1 block's round trip again
-             under torch.profiler: the device's busy share of the wall
-             time, its time by kernel, and each kernel's device time
+ 11 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
+             block's round trip again under torch.profiler: the device's
+             busy share of the wall time, its time by kernel, each
+             kernel's device time and the launch counts
 
-Phases 4, 5 and 6 are the main paths: each run sets the launch counts to 0,
+Phases 4-9 are the main paths: each run sets the launch counts to 0,
 drives the path and reads the counts, and fails when a kernel of that path
 was not launched.  The lines before the last are the nvidia-smi line and
 the kernels line; the last line is {"ok": true, "device": {...}}.  Needs
@@ -775,11 +787,12 @@ def with_iupac(data: bytes, seed: int) -> bytes:
     return b"\n".join(lines)
 
 
-def lossy_fixed_point(device, data: bytes, params) -> bytes:
-    """What a lossy archive of data decodes to (binned qualities, N where a
-    bin is 0); checked to keep the titles and the bases of data.  Lossy
-    coding is idempotent on it, so its round trip is byte-exact, as the
-    golden lossy fixture's is."""
+def lossy_fixed_point(device, data: bytes, params, blank: bytes = b"N"
+                      ) -> bytes:
+    """What a lossy archive of data decodes to (binned qualities, `blank`
+    where a bin is 0: N, or '.' in colour space); checked to keep the
+    titles and the bases of data.  Lossy coding is idempotent on it, so its
+    round trip is byte-exact, as the golden lossy fixture's is."""
     from dsrc_tpu_torch.api import DsrcModule
     arch, out = io.BytesIO(), io.BytesIO()
     DsrcModule(params, device=device).compress(io.BytesIO(data), arch)
@@ -787,7 +800,7 @@ def lossy_fixed_point(device, data: bytes, params) -> bytes:
     DsrcModule(params, device=device).decompress(arch, out)
     got, want = out.getvalue().split(b"\n"), data.split(b"\n")
     if got[0::4] != want[0::4] or len(got) != len(want) or any(
-            g != w and any(a != b and a != ord("N")
+            g != w and any(a != b and a != blank[0]
                            for a, b in zip(g, w))
             for g, w in zip(got[1::4], want[1::4])):
         raise AssertionError("lossy decode changed titles or bases")
@@ -802,8 +815,8 @@ def generic_phase(device, big: bytes, small: bytes):
     from dsrc_tpu_torch.utils.synth import make_fastq
     gen = ("rans_encode", "ctx_decode")
     res = round_trip(device, "generic_m1_128MB", big, m1_params(64 * MB),
-                     gen)
-    res.pop("archive")
+                     gen, keep_archive=True)
+    big_archive = res.pop("archive")
     emit(res)
     p8 = m1_params(8 * MB)
     r8 = round_trip(device, "generic_m1_8MB", small, p8, gen)
@@ -835,7 +848,7 @@ def generic_phase(device, big: bytes, small: bytes):
         runs.append(r)
     if not any(d == "A19" for d, _ in runs[-1]["schemes"]):
         raise AssertionError("the A19 run took no A19 block")
-    return runs
+    return runs, big_archive
 
 
 # --------------------------------------------------------------------------
@@ -843,10 +856,12 @@ def generic_phase(device, big: bytes, small: bytes):
 # --------------------------------------------------------------------------
 
 def round_trip(device, name: str, data: bytes, params=None,
-               kernels=("rans_encode", "rans_decode")) -> dict:
+               kernels=("rans_encode", "rans_decode"),
+               keep_archive: bool = False) -> dict:
     """Compress and decompress `data` through DsrcModule on `device`, with
     the launch counts set to 0 just before and read just after; fails
-    unless each of `kernels` was launched."""
+    unless each of `kernels` was launched.  The archive is returned for
+    inputs of up to one 8 MB block, or when keep_archive."""
     import torch
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.ops import rans_kernels as RK
@@ -882,8 +897,8 @@ def round_trip(device, name: str, data: bytes, params=None,
             # host-clock seconds per stage, summed over the worker threads
             "compress_stage_s": stages_c, "decompress_stage_s": stages_d,
             "launches": counts, "schemes": info.schemes,
-            "archive": arch.getvalue() if len(data) <= 8 * MB + 4096
-            else None}
+            "archive": arch.getvalue()
+            if keep_archive or len(data) <= 8 * MB + 4096 else None}
 
 
 def fastq_of_size(nbytes: int, seed: int, fixed_width: bool) -> bytes:
@@ -909,7 +924,7 @@ def profile_round_trip(device, name: str, data: bytes, params=None,
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        round_trip(device, name, data, params, kernels)
+        launches = round_trip(device, name, data, params, kernels)["launches"]
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -925,7 +940,8 @@ def profile_round_trip(device, name: str, data: bytes, params=None,
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / 1e3
             for k in ("rans_encode", "rans_decode", "ctx_decode")}
-    return {"phase": "profile", "path": name, "wall_ms": wall_ms,
+    return {"phase": "profile", "path": name, "launches": launches,
+            "wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "device_events": len(dev),
@@ -959,6 +975,252 @@ def golden(device) -> dict:
             raise AssertionError(f"{name}: compressing its input does not "
                                  f"write the golden archive's bytes")
         out[name] = "decode and encode byte-exact"
+    return out
+
+
+# --------------------------------------------------------------------------
+# SEMI title mode 0, colour space, the record API
+# --------------------------------------------------------------------------
+
+def cut_records(data: bytes, nbytes: int) -> bytes:
+    """data cut at the last whole record within nbytes."""
+    import numpy as np
+    ends = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)[3::4]
+    return data[:int(ends[np.searchsorted(ends, nbytes) - 1]) + 1]
+
+
+def umi_fastq_of_size(nbytes: int, seed: int) -> bytes:
+    """make_fastq_fast's Illumina reads (read length 100) with an 8-base UMI
+    appended to each read name, as UMI-tools' extract writes it
+    ("@SIM001.<i>_<UMI> INSTR:..."), cut at the last whole record within
+    nbytes.  The UMI is a free-text field: every block takes SEMI title
+    mode 0."""
+    import numpy as np
+    from dsrc_tpu_torch.utils.synth import make_fastq_fast
+    n = nbytes // 240
+    arr = np.frombuffer(make_fastq_fast(n, 100, seed=seed), np.uint8)
+    ends = np.flatnonzero(arr == 10)[3::4]
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    ndig = np.floor(np.log10(np.arange(1, n + 1))).astype(np.int64) + 1
+    at = starts + len("@SIM001.") + ndig            # the name's first space
+    rng = np.random.default_rng(seed)
+    umi = np.concatenate([np.full((n, 1), ord("_"), np.uint8),
+                          np.frombuffer(b"ACGT", np.uint8)[
+                              rng.integers(0, 4, (n, 8))]], axis=1)
+    out = np.insert(arr, np.repeat(at, 9), umi.ravel()).tobytes()
+    return cut_records(out, nbytes)
+
+
+def semi_title_modes(archive: bytes):
+    """The title mode byte of each SEMI block of an archive (None for a
+    block of another class)."""
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    from dsrc_tpu_torch.models import block as B
+    from dsrc_tpu_torch.utils.bitio import BitReader
+    rd = ArchiveReader(io.BytesIO(archive))
+    modes = []
+    for i in range(rd.num_blocks):
+        blob = rd.read_block(i)
+        if blob[0] != B.BLOCK_SEMI:
+            modes.append(None)
+            continue
+        r = BitReader(blob[1:])
+        _n, rpad, _rl = (r.get_varint() for _ in range(3))
+        B._get_wire(r, rpad)
+        r.get_byte()                                # quality mode
+        modes.append(r.get_byte())
+    return modes
+
+
+def semi_mode0_phase(device, data: bytes):
+    """-m0 on free-text titles: the whole file on the card (every block
+    title mode 0, byte-exact), and one 8 MB block's archive on the card
+    equal to the port's archive of it on the CPU."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.io.chunker import FastqChunker
+    kern = ("rans_encode", "rans_decode", "ctx_decode")
+    res = round_trip(device, "semi_mode0", data, None, kern,
+                     keep_archive=True)
+    modes = semi_title_modes(res.pop("archive"))
+    if modes != [0] * len(modes):
+        raise AssertionError(f"semi_mode0: title modes {modes}, not all 0")
+    res["title_modes"] = modes
+    emit(res)
+    block0 = FastqChunker(io.BytesIO(data), 8 * MB).next_block().tobytes()
+    r8 = round_trip(device, "semi_mode0_8MB_block", block0, None, kern)
+    cpu = io.BytesIO()
+    DsrcModule(device="cpu").compress(io.BytesIO(block0), cpu)
+    if cpu.getvalue() != r8.pop("archive"):
+        raise AssertionError("the 8 MB mode-0 archive on the card differs "
+                             "from the port's archive on the CPU")
+    r8["equals_cpu_archive"] = True
+    emit(r8)
+    return [res, r8], block0
+
+
+def solid_of_size(nbytes: int, seed: int) -> bytes:
+    """SOLiD reads (a primer, 50 colours, '.' where a call failed) cut at
+    the last whole record within nbytes."""
+    from dsrc_tpu_torch.utils.synth import make_fastq
+    return cut_records(make_fastq(nbytes // 150, 50, color_space=True,
+                                  seed=seed), nbytes)
+
+
+def colour_dna_stream(device, block: bytes, params):
+    """The DNA stream of one colour-space GENERIC block as models/dna.py
+    codes it at these settings: CTX8P (colour pairs, 64 symbols) or CTX8
+    (8 symbols), for ctx_checks."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.api import analyze_first_block
+    from dsrc_tpu_torch.models import block as B
+    from dsrc_tpu_torch.models import dna as DNA
+    from dsrc_tpu_torch.ops import ctx as C
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    arr = np.frombuffer(block, np.uint8)
+    shape = B.BlockShape.for_block_size(params.fastq_block_size_bytes)
+    settings = params.to_settings()
+    ds = analyze_first_block(arr, shape, device=device)
+    if not ds.color_space:
+        raise AssertionError("the colour block is not detected as SOLiD")
+    g = B.BlockCodec(shape, settings, ds, device).stage_generic(arr)
+    cap, n = shape.cap, g.dna_total
+    nz = np.flatnonzero(DNA.dna_stats(g.dna, n, cap).cpu().numpy()[:19])
+    if len(nz) != 5:
+        raise AssertionError(f"colour symbols {nz.tolist()}, not 0123.")
+    dense = DNA._dense_lut(nz, device)[torch.clamp(g.dna, max=18)]
+    npairs = (n + 1) // 2
+    if settings.dna_order >= 4 and n >= (1 << 16):
+        ncp = C.stream_cap(cap // 2, npairs)
+        lanes = C.pick_num_lanes(ncp)
+        order = DNA._order8p_eff(settings.dna_order, npairs)
+        return ctx_stream("dna_ctx8p", CK.CtxMode(
+            CK.MODE_HISTORY, sbits=6, cmask=(1 << (6 * order)) - 1),
+            1 << (6 * order), 64, C.band_edges(ncp // lanes),
+            DNA._to_pairs(dense, n, cap, 8)[:ncp], npairs, ctx=(order, 6),
+            lanes_n=lanes)
+    nc = C.stream_cap(cap, n)
+    lanes = C.pick_num_lanes(nc)
+    order = DNA._order8_eff(settings.dna_order, n)
+    return ctx_stream("dna_ctx8", CK.CtxMode(
+        CK.MODE_HISTORY, sbits=3, cmask=(1 << (3 * order)) - 1),
+        1 << (3 * order), 8, C.band_edges(nc // lanes), dense[:nc], n,
+        ctx=(order, 3), lanes_n=lanes)
+
+
+def colour_phase(device, big: bytes):
+    """Colour space on the card: the 64 MB -m1 file (one block), and 8 MB
+    at -m1 (its archive equal to the port's CPU archive, K3 held against
+    its plain version on every band of its DNA stream), -d0 -q0, -l (on
+    its lossy fixed point) and -c."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    kern = ("rans_encode", "ctx_decode")
+    runs = []
+    res = round_trip(device, "colour_m1_64MB", big, m1_params(64 * MB),
+                     kern)
+    res.pop("archive")
+    runs.append(res)
+    small = cut_records(big, 8 * MB - 1024)
+    p8 = m1_params(8 * MB)
+    r8 = round_trip(device, "colour_m1_8MB", small, p8, kern)
+    cpu = io.BytesIO()
+    DsrcModule(p8, device="cpu").compress(io.BytesIO(small), cpu)
+    if cpu.getvalue() != r8.pop("archive"):
+        raise AssertionError("the 8 MB colour-space archive on the card "
+                             "differs from the port's archive on the CPU")
+    r8["equals_cpu_archive"] = True
+    runs.append(r8)
+    lossy = InputParameters(fastq_block_size_mb=8, lossy_quality=True)
+    for name, data, params in (
+            ("colour_d0q0_8MB", small, InputParameters(fastq_block_size_mb=8)),
+            ("colour_lossy_8MB",
+             lossy_fixed_point(device, small, lossy, blank=b"."), lossy),
+            ("colour_crc_8MB", small,
+             InputParameters(fastq_block_size_mb=8, calculate_crc32=True))):
+        r = round_trip(device, name, data, params, kern)
+        r.pop("archive")
+        runs.append(r)
+    for r in runs:
+        if any(d not in ("CTX8", "CTX8P") for d, _ in r["schemes"]):
+            raise AssertionError(f"{r['phase']}: DNA schemes {r['schemes']}")
+        emit(r)
+    recs = ctx_checks(device, [colour_dna_stream(device, small, p8)],
+                      "8MB_colour", timed=False, check_plain=True)
+    return runs, recs
+
+
+def record_api_phase(device, m1_data: bytes, m1_archive: bytes,
+                     n_records: int = 200_000):
+    """The record API on the card: n_records records written through
+    DsrcArchive and read back in order; then records [N - 500, N + 500)
+    of the 128 MB -m1 archive, N its first block's record count, through
+    DsrcArchive.read_records and through CLI -r, each against the input's
+    records."""
+    import numpy as np
+    from dsrc_tpu_torch import cli
+    from dsrc_tpu_torch.archive_api import DsrcArchive, iter_fastq_text
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils.synth import make_fastq_fast
+    out = {"phase": "record_api"}
+    recs = list(iter_fastq_text(make_fastq_fast(n_records, 100, seed=95)))
+    arch = io.BytesIO()
+    RK.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DsrcArchive(device=device) as a:
+        a.start_compress(arch)
+        for r in recs:
+            a.write_next_record(r)
+    t1 = time.perf_counter()
+    arch.seek(0)
+    got = []
+    with DsrcArchive(device=device) as b:
+        b.start_decompress(arch)
+        while (r := b.read_next_record()) is not None:
+            got.append(r)
+    t2 = time.perf_counter()
+    out["launches"] = RK.launch_counts()
+    if got != recs:
+        raise AssertionError("record API: records read back differ")
+    if not (out["launches"]["rans_encode"] and out["launches"]["rans_decode"]):
+        raise AssertionError("record API: K1 or K2 was not launched")
+    out.update(records=len(recs), write_s=t1 - t0, read_s=t2 - t1,
+               archive_bytes=len(arch.getvalue()))
+
+    n0 = ArchiveReader(io.BytesIO(m1_archive)).block_records[0]
+    lo, hi = n0 - 500, n0 + 500
+    ends = np.flatnonzero(np.frombuffer(m1_data, np.uint8) == 10)[3::4]
+    want = m1_data[int(ends[lo - 1]) + 1:int(ends[hi - 1]) + 1]
+    RK.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DsrcArchive(device=device) as a:
+        a.start_decompress(io.BytesIO(m1_archive))
+        got = b"".join(r.to_bytes() for r in a.read_records(lo, hi))
+    t1 = time.perf_counter()
+    range_launches = RK.launch_counts()
+    if got != want or not range_launches["ctx_decode"]:
+        raise AssertionError("read_records across the block boundary "
+                             "differs from the input's records")
+    tmp = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    src, dst = os.path.join(tmp, "m1.xfqz"), os.path.join(tmp, "range.fastq")
+    with open(src, "wb") as f:
+        f.write(m1_archive)
+    t2 = time.perf_counter()
+    rc = cli.main(["d", f"-r{lo}:{hi}", src, dst], device=device)
+    t3 = time.perf_counter()
+    with open(dst, "rb") as f:
+        cli_out = f.read()
+    for path in (src, dst):
+        os.remove(path)
+    if rc != 0 or cli_out != want:
+        raise AssertionError(f"CLI -r{lo}:{hi} (rc {rc}) differs from the "
+                             f"input's records")
+    out.update(range=[lo, hi], block_boundary=n0,
+               read_records_s=t1 - t0, cli_r_s=t3 - t2,
+               range_launches=range_launches)
+    emit(out)
     return out
 
 
@@ -1024,25 +1286,41 @@ def main() -> int:
     res_u = round_trip(device, "uniform", uni)
     res_u.pop("archive")
     emit(res_u)
-    runs = generic_phase(device, big, m1_8mb)
-    for r in [res, res_u] + runs:
+    runs, big_archive = generic_phase(device, big, m1_8mb)
+    mode0_runs, mode0_block = semi_mode0_phase(
+        device, umi_fastq_of_size(64 * MB - 4096, seed=93))
+    colour_runs, colour_recs = colour_phase(
+        device, solid_of_size(64 * MB - 4096, seed=94))
+    rec_api = record_api_phase(device, big, big_archive)
+    del big_archive
+    for r in [res, res_u] + runs + mode0_runs + colour_runs + [rec_api]:
         for k, n in r["launches"].items():
             launches[k] += n
+    for k, n in rec_api["range_launches"].items():
+        launches[k] += n
     emit(golden(device))
     emit(profile_round_trip(device, "semi", semi))
+    emit(profile_round_trip(device, "semi_mode0_8MB_block", mode0_block,
+                            None, ("rans_encode", "rans_decode",
+                                   "ctx_decode")))
     emit(profile_round_trip(device, "generic_m1_64MB_block", block64,
                             m1_params(64 * MB), ("rans_encode", "ctx_decode")))
 
+    records["rans_encode"]["max_abs_err"] = max(
+        [records["rans_encode"]["max_abs_err"]]
+        + [r["k1_max_abs_err"] for r in colour_recs.values()])
     q64 = recs64["quality"]
     records["ctx_decode"] = dict(
-        max_abs_err=max(r["k3_max_abs_err"] for r in recs8.values()),
+        max_abs_err=max(r["k3_max_abs_err"] for r in
+                        list(recs8.values()) + list(colour_recs.values())),
         ms=q64["k3_ms"], plain_ms=k3_plain, bound_ms=q64["k3_stream_bound_ms"],
         bound_by=q64["k3_stream_bound_by"],
         # where each stream's table rows live, and the serial chain's floor
         # (the warp of lane 0 alone) beside the bytes bound, which a serial
         # decode cannot reach
         route={f"{size}_{k}": r["route"] for size, recs in
-               (("8MB", recs8), ("64MB", recs64)) for k, r in recs.items()},
+               (("8MB", recs8), ("64MB", recs64), ("8MB_colour", colour_recs))
+               for k, r in recs.items()},
         chain_floor_ms=q64["k3_chain_floor_ms"], m2_shapes=m2_lines)
     records["a19_decode"] = dict(
         max_abs_err=a19["k2_max_abs_err"], ms=a19["ms"],

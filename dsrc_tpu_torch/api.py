@@ -192,9 +192,10 @@ class DsrcModule:
                         return
                     yield check(block)
 
-            def job(block):
+            def job(item):
+                index, block = item
                 t0 = time.perf_counter()
-                blob, info = codec.compress(block)
+                blob, info = codec.compress(block, index)
                 if settings.calculate_crc32 and \
                         not codec.verify_checksum(blob):
                     raise DsrcException("CRC32 verification failed "
@@ -202,14 +203,17 @@ class DsrcModule:
                 times.add("codec", time.perf_counter() - t0, len(block))
                 return blob, _count_records(block), info
 
-            all_blocks = itertools.chain([check(first)], rest())
+            all_blocks = enumerate(itertools.chain([check(first)], rest()))
             workers = params.num_workers or 2
-            # block 0 runs inline: it seeds the frozen semi hints before
-            # worker threads start
+            # block 0 runs inline: when it is a semi block it seeds the semi
+            # hints before worker threads start; a later block that seeds
+            # one waits for the blocks before it (BlockCodec.seed_order)
             head = [job(next(all_blocks))]
             if workers > 1:
                 results = itertools.chain(
-                    head, ordered_parallel_map(all_blocks, job, workers))
+                    head, ordered_parallel_map(
+                        all_blocks, job, workers,
+                        on_error=codec.seed_order.cancel))
             else:
                 results = itertools.chain(head, map(job, all_blocks))
             for blob, nrec, info in results:

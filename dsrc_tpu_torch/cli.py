@@ -5,8 +5,7 @@
     python -m dsrc_tpu_torch c -s out.xfqz < in.fastq      (stdin FASTQ)
     python -m dsrc_tpu_torch d -s in.xfqz > out.fastq      (stdout FASTQ)
 
-The port codes every setting below; colour-space input, SEMI blocks with
-free-text titles at -d0 -q0, and -r exit with an error for now.
+The port codes every setting below, on every input dsrc_tpu takes.
 
 Options (compression):
   -d<n>  DNA compression level 0..3 (order = 3n)        [0]
@@ -24,7 +23,6 @@ Options (compression):
 
 Options (decompression):
   -r<N:M>  extract only records [N, M) (0-based) via the block index
-           (not ported yet)
 """
 from __future__ import annotations
 
@@ -104,10 +102,6 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
         mode, params, inp, outp = parse_args(argv)
-        if mode == "d" and params.record_range is not None:
-            raise DsrcException("record-range extraction (-r) needs the "
-                                "archive API, not ported to dsrc_tpu_torch "
-                                "yet; use dsrc_tpu")
         from .api import DsrcModule
         m = DsrcModule(params, device)
         if mode == "c":
@@ -117,6 +111,21 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
                 for k in ("tag", "dna", "quality", "meta"):
                     print(f"{k:8s} raw {info.raw[k]:>14d}  "
                           f"compressed {info.comp[k]:>12d}", file=sys.stderr)
+        elif params.record_range is not None:
+            # records [N, M) through the block index: only the blocks that
+            # overlap the range are decompressed
+            from .archive_api import DsrcArchive
+            dst = sys.stdout.buffer if outp is None else open(outp, "wb")
+            try:
+                with DsrcArchive(params, device) as arch:
+                    arch.start_decompress(inp)
+                    a, b = params.record_range
+                    b = min(b, arch.record_count)
+                    for rec in arch.read_records(a, b):
+                        dst.write(rec.to_bytes())
+            finally:
+                if outp is not None:
+                    dst.close()
         else:
             dst = sys.stdout.buffer if outp is None else outp
             m.decompress(inp, dst)

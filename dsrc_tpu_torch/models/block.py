@@ -1,22 +1,22 @@
-"""Block codec of the port: the UNIFORM, SEMI (title mode 2) and GENERIC
-classes of dsrc_tpu/models/block.py, byte-identical blobs.
+"""Block codec of the port: the UNIFORM, SEMI and GENERIC classes of
+dsrc_tpu/models/block.py, byte-identical blobs.
 
   UNIFORM / SEMI: host staging (numpy) -> device tensors -> uniform_pipeline
-              (positional rANS through kernels K1/K2) -> host serialization
+              (positional rANS through kernels K1/K2) -> host serialization;
+              SEMI titles are numeric value planes on the device (title
+              mode 2) or go through the tag coder (mode 0, free text)
   GENERIC:    device parse and stream gathers -> record transforms (folding
-              or lossy binning) -> tag / quality / DNA sections, each stream
-              coded by the context-model codec (ops/ctx.py: K1 to encode,
-              K3 to decode; DNA scheme A19 decodes through K2)
+              or lossy binning; colour-space digits for SOLiD reads) -> tag /
+              quality / DNA sections, each stream coded by the context-model
+              codec (ops/ctx.py: K1 to encode, K3 to decode; DNA scheme A19
+              decodes through K2)
   decompress: exact mirror; FASTQ text is laid out on the host
               (utils/native.layout_records)
-
-Still raising DsrcException, and never writing other bytes: colour-space
-data (the GENERIC transform of SOLiD reads) and SEMI title mode 0
-(free-text titles on fixed-length reads).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,11 +47,6 @@ BLOCK_UNIFORM = 1   # fixed-layout records
 BLOCK_SEMI = 2      # fixed read length, variable titles (real Illumina)
 
 HASH_CHAR = ord("#")   # truncation symbol (reference RecordsProcessor.h:76)
-
-_CS_MSG = ("colour-space (SOLiD) blocks are not ported to dsrc_tpu_torch "
-           "yet; use dsrc_tpu")
-_SEMI0_MSG = ("SEMI blocks with free-text titles (title mode 0) are not "
-              "ported to dsrc_tpu_torch yet; use dsrc_tpu")
 
 
 def _rpad_bucket(num_rec: int) -> int:
@@ -315,20 +310,44 @@ def semi_tok_planes(vmat: np.ndarray, num_rec: int,
     return v0, pcs
 
 
-def serialize_semi_tok_block(comp, num_rec: int, rpad: int, read_len: int,
-                             pcs, v0, tok_meta, raw_tag_len: int,
-                             wire=None):
-    """compress_semi_tok output -> (blob, StreamsInfo)."""
-    wire = wire or UP.WIRE_DEFAULT
-    k, seps, fields = tok_meta
-    w = BitWriter()
+def _put_semi_header(w: BitWriter, comp, num_rec: int, rpad: int,
+                     read_len: int, wire, title_mode: int) -> None:
     w.put_byte(BLOCK_SEMI)
     w.put_varint(num_rec)
     w.put_varint(rpad)
     w.put_varint(read_len)
     _put_wire(w, wire)
     w.put_byte(int(comp["qual_mode"]))
-    w.put_byte(2)
+    w.put_byte(title_mode)
+
+
+def _finish_semi(w: BitWriter, comp, num_rec: int, read_len: int,
+                 meta_end: int, raw_tag_len: int):
+    """Quality and DNA sections after the title section -> (blob,
+    StreamsInfo)."""
+    t_end = w.byte_position
+    _put_pos_stream(w, num_rec * read_len, comp["qual"])
+    q_end = w.byte_position
+    packed, exc_bits, _ = comp["dna"]
+    _put_dna(w, packed, exc_bits, num_rec, read_len)
+    blob = w.getvalue()
+    info = StreamsInfo()
+    info.raw.update(tag=raw_tag_len, dna=num_rec * read_len,
+                    quality=num_rec * read_len)
+    info.comp.update(meta=meta_end, tag=t_end - meta_end,
+                     quality=q_end - t_end, dna=len(blob) - q_end)
+    return blob, info
+
+
+def serialize_semi_tok_block(comp, num_rec: int, rpad: int, read_len: int,
+                             pcs, v0, tok_meta, raw_tag_len: int,
+                             wire=None):
+    """compress_semi_tok output -> (blob, StreamsInfo) of a title mode 2
+    block."""
+    k, seps, fields = tok_meta
+    w = BitWriter()
+    _put_semi_header(w, comp, num_rec, rpad, read_len,
+                     wire or UP.WIRE_DEFAULT, 2)
     w.put_varint(k)
     w.put_bytes(seps)
     fi = 0
@@ -346,25 +365,28 @@ def serialize_semi_tok_block(comp, num_rec: int, rpad: int, read_len: int,
     meta_end = w.byte_position
     if sum(pcs):
         _put_pos_stream(w, num_rec * sum(pcs), comp["title"])
-    t_end = w.byte_position
-    _put_pos_stream(w, num_rec * read_len, comp["qual"])
-    q_end = w.byte_position
-    packed, exc_bits, _ = comp["dna"]
-    _put_dna(w, packed, exc_bits, num_rec, read_len)
-    blob = w.getvalue()
-    info = StreamsInfo()
-    info.raw.update(tag=raw_tag_len, dna=num_rec * read_len,
-                    quality=num_rec * read_len)
-    info.comp.update(meta=meta_end, tag=t_end - meta_end,
-                     quality=q_end - t_end, dna=len(blob) - q_end)
-    return blob, info
+    return _finish_semi(w, comp, num_rec, read_len, meta_end, raw_tag_len)
 
 
-def parse_semi_block(r: BitReader) -> dict:
-    """Blob reader (after the scheme byte) -> dict describing a mode-2 semi
-    block: num_rec/rpad/read_len/wire/mode/qual_mode, tok_meta/pcs/v0, and
-    the title (when sum(pcs) > 0), qual and dna numpy stream tuples.  Title
-    mode 0 raises (not ported)."""
+def serialize_semi0_block(comp, num_rec: int, rpad: int, read_len: int,
+                          tstream: np.ndarray, tl: np.ndarray,
+                          preserve_mask: int, cap: int, device):
+    """compress_semi output and the block's titles -> (blob, StreamsInfo) of
+    a title mode 0 block: the titles go through the tag coder, its byte
+    streams coded on `device`."""
+    w = BitWriter()
+    _put_semi_header(w, comp, num_rec, rpad, read_len, UP.WIRE_DEFAULT, 0)
+    meta_end = w.byte_position
+    TAG.encode_tags(w, tstream, tl, preserve_mask, cap, device)
+    return _finish_semi(w, comp, num_rec, read_len, meta_end, len(tstream))
+
+
+def parse_semi_block(r: BitReader, tag_cap: int, device) -> dict:
+    """Blob reader (after the scheme byte) -> dict describing a semi block:
+    num_rec/rpad/read_len/wire/mode/qual_mode and the qual and dna numpy
+    stream tuples; mode 2 adds tok_meta/pcs/v0 and the title stream (when
+    sum(pcs) > 0); mode 0 decodes its tag section here, on `device`
+    (titles_np, title_len_np)."""
     num_rec = r.get_varint()
     rpad = r.get_varint()
     read_len = r.get_varint()
@@ -373,12 +395,27 @@ def parse_semi_block(r: BitReader) -> dict:
     wire = _get_wire(r, rpad)
     qual_mode = r.get_byte()
     title_mode = r.get_byte()
-    if title_mode == 0:
-        raise DsrcException(_SEMI0_MSG)
-    if title_mode != 2:
+    if title_mode not in (0, 2):
         raise DsrcException(f"semi block: unknown title mode {title_mode}")
     out = dict(num_rec=num_rec, rpad=rpad, read_len=read_len, wire=wire,
                mode=title_mode, qual_mode=qual_mode)
+    if title_mode == 0:
+        titles_np, title_len_np = TAG.decode_tags(r, num_rec, tag_cap,
+                                                  device)
+        out.update(titles_np=titles_np, title_len_np=title_len_np)
+    else:
+        _parse_value_titles(r, out)
+    out["qual"] = _get_pos_stream(
+        r, num_rec * read_len, read_len, wire.qual_a,
+        rpad // wire.qual_group, wire.qual_group)
+    out["dna"] = _get_dna(r, rpad, read_len)
+    return out
+
+
+def _parse_value_titles(r: BitReader, out: dict) -> None:
+    """The title section of a mode-2 semi block into `out`: tok_meta, pcs,
+    v0 and the value-plane stream (when sum(pcs) > 0)."""
+    num_rec, rpad, wire = out["num_rec"], out["rpad"], out["wire"]
     k = r.get_varint()
     if not 0 < k <= TAG.MAX_FIELDS:
         raise DsrcException("semi block: bad title field count")
@@ -408,11 +445,6 @@ def parse_semi_block(r: BitReader) -> dict:
         out["title"] = _get_pos_stream(
             r, num_rec * sum(pcs), sum(pcs), UP.VAL_A,
             rpad // wire.val_group, wire.val_group)
-    out["qual"] = _get_pos_stream(
-        r, num_rec * read_len, read_len, wire.qual_a,
-        rpad // wire.qual_group, wire.qual_group)
-    out["dna"] = _get_dna(r, rpad, read_len)
-    return out
 
 
 # --------------------------------------------------------------------------
@@ -423,7 +455,8 @@ class GenericStreams(NamedTuple):
     """A GENERIC block parsed and transformed, before its sections are
     coded: the parse, the gathered title / sequence / quality byte streams
     (device, [cap]) with their totals, the block's quality offset, the
-    dense DNA symbols left after folding and the quality values."""
+    dense DNA symbols left after folding (colour space: the digits after
+    each primer) and the quality values."""
     parsed: P.ParsedBlock
     num_rec: int
     qual_len: np.ndarray
@@ -437,14 +470,57 @@ class GenericStreams(NamedTuple):
     dna: torch.Tensor
     dna_total: int
     qvals: torch.Tensor
+    primers: Optional[np.ndarray]   # colour space: each read's primer base
+
+
+class SeedOrder:
+    """Block order for the semi hints.  A block about to seed a hint first
+    waits until every earlier block has decided whether it seeds one, so
+    the hints are seeded by the same block as in a one-worker run, whatever
+    the worker scheduling.  Blocks are numbered from 0 in file order; the
+    block without a number (None) never waits."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._done: set = set()
+        self._low = 0              # every block below this one has decided
+        self._cancelled = False
+
+    def wait_for_earlier(self, index: Optional[int]) -> None:
+        if index is None:
+            return
+        with self._cv:
+            self._cv.wait_for(lambda: self._low >= index or self._cancelled)
+            if self._cancelled:
+                raise DsrcException("compression cancelled")
+
+    def decided(self, index: Optional[int]) -> None:
+        if index is None:
+            return
+        with self._cv:
+            if index >= self._low:
+                self._done.add(index)
+            while self._low in self._done:
+                self._done.discard(self._low)
+                self._low += 1
+            self._cv.notify_all()
+
+    def cancel(self) -> None:
+        """Release every waiting block (another block or the reader
+        failed)."""
+        with self._cv:
+            self._cancelled = True
+            self._cv.notify_all()
 
 
 class BlockCodec:
     """Per-block compress/decompress bound to one BlockShape and device.
 
-    Thread-safe apart from the semi hints, which the FIRST semi block (always
-    compressed before worker threads start, api.py) seeds and then freezes,
-    so compressed bytes never depend on worker scheduling."""
+    Thread-safe.  The semi hints (lane bucket, plane counts) are seeded by
+    the first semi (resp. first title mode 2) block in file order and then
+    frozen; with block numbers passed to compress (api.py does), a block
+    that would seed one waits for the earlier blocks (SeedOrder), so the
+    compressed bytes never depend on worker scheduling."""
 
     def __init__(self, shape: BlockShape, settings: CompressionSettings,
                  dataset: DatasetType, device="cuda"):
@@ -457,18 +533,26 @@ class BlockCodec:
         self._rpad_hint = 0
         self._pcs_hint: dict = {}   # semi mode-2 per-field plane counts
         self._hints_frozen = False
+        self.seed_order = SeedOrder()
 
     # -------------------------------------------------- compress
-    def compress(self, block: np.ndarray) -> Tuple[bytes, StreamsInfo]:
-        if len(block) > self.shape.cap:
-            raise DsrcException("block larger than codec capacity")
-        if self._uniform_eligible():
-            out = self._compress_uniform(block)
-            if out is None:
-                out = self._compress_semi(block)
-            if out is not None:
-                return out
-        return self._compress_generic(block)
+    def compress(self, block: np.ndarray, index: Optional[int] = None
+                 ) -> Tuple[bytes, StreamsInfo]:
+        """Compress one block.  index: the block's number in the file, for
+        SeedOrder; None when blocks are compressed one at a time, in
+        order."""
+        try:
+            if len(block) > self.shape.cap:
+                raise DsrcException("block larger than codec capacity")
+            if self._uniform_eligible():
+                out = self._compress_uniform(block)
+                if out is None:
+                    out = self._compress_semi(block, index)
+                if out is not None:
+                    return out
+            return self._compress_generic(block)
+        finally:
+            self.seed_order.decided(index)
 
     def _uniform_eligible(self) -> bool:
         st, ds = self.settings, self.dataset
@@ -503,28 +587,40 @@ class BlockCodec:
         self._hints_frozen = True
         return self._pcs_hint
 
-    def _compress_semi(self, block: np.ndarray):
-        """Fixed read length, variable titles.  None = not semi-layout;
-        titles that are not all constant/numeric fields (mode 0) raise."""
+    def _compress_semi(self, block: np.ndarray, index: Optional[int]):
+        """Fixed read length, variable titles.  None = not semi-layout.
+        Titles whose fields are all constant or numeric (at most 16
+        numeric) take title mode 2, the others mode 0 (the tag coder)."""
+        order = self.seed_order
+        if self._rpad_hint == 0:
+            order.wait_for_earlier(index)
         staged = stage_semi_raw(block, self._rpad_hint)
         if staged is None:
+            order.decided(index)
             return None
         read_len, num_rec, qm_a, sm_a, tstream, tl = staged
         rpad = self._semi_rpad(num_rec)
         tok = TAG.analyze_value_fields(np.asarray(tstream, np.uint8),
                                        np.asarray(tl))
+        dev = self.device
+        qm = torch.from_numpy(np.ascontiguousarray(qm_a[:rpad])).to(dev)
+        sm = torch.from_numpy(np.ascontiguousarray(sm_a[:rpad])).to(dev)
         if tok is None or tok[0].shape[1] > 16:
-            raise DsrcException(_SEMI0_MSG)
+            order.decided(index)
+            comp = UP.compress_semi(qm, sm, num_rec, read_len)
+            return serialize_semi0_block(
+                comp, num_rec, rpad, read_len, tstream, tl,
+                self.settings.tag_preserve_mask, self.shape.cap, dev)
         vmat, tok_meta = tok
+        if not self._hints_frozen:
+            order.wait_for_earlier(index)
         v0, pcs = semi_tok_planes(vmat, num_rec, self._semi_pcs_hint())
+        order.decided(index)
         vpad = np.zeros((rpad, vmat.shape[1]), np.int32)
         vpad[:num_rec] = vmat
-        dev = self.device
         comp = UP.compress_semi_tok(
             torch.from_numpy(vpad).to(dev), torch.from_numpy(v0).to(dev),
-            torch.from_numpy(np.ascontiguousarray(qm_a[:rpad])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(sm_a[:rpad])).to(dev),
-            num_rec, pcs, read_len, rpad)
+            qm, sm, num_rec, pcs, read_len, rpad)
         return serialize_semi_tok_block(comp, num_rec, rpad, read_len, pcs,
                                         v0, tok_meta, len(tstream))
 
@@ -549,16 +645,21 @@ class BlockCodec:
 
     def _decompress_semi(self, r: BitReader) -> np.ndarray:
         from ..convert import comp_from_numpy
-        d = parse_semi_block(r)
-        num_rec, read_len = d["num_rec"], d["read_len"]
+        d = parse_semi_block(r, self.shape.cap, self.device)
+        num_rec, read_len, rpad = d["num_rec"], d["read_len"], d["rpad"]
         comp = comp_from_numpy(
             {k: d[k] for k in ("num_rec", "qual_mode", "title", "qual", "dna")
              if k in d}, self.device)
-        vmat, qual_m, seq_m = UP.decompress_semi_tok(
-            comp, torch.from_numpy(d["v0"]).to(self.device), d["pcs"],
-            read_len, d["rpad"], left=True, wire=d["wire"])
-        titles_np, title_len_np = TAG.render_value_titles(
-            to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
+        if d["mode"] == 0:
+            titles_np, title_len_np = d["titles_np"], d["title_len_np"]
+            qual_m, seq_m = UP.decompress_semi(comp, read_len, rpad,
+                                               left=True, wire=d["wire"])
+        else:
+            vmat, qual_m, seq_m = UP.decompress_semi_tok(
+                comp, torch.from_numpy(d["v0"]).to(self.device), d["pcs"],
+                read_len, rpad, left=True, wire=d["wire"])
+            titles_np, title_len_np = TAG.render_value_titles(
+                to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
         return native.layout_records(
             num_rec, titles_np, title_len_np,
             to_numpy(seq_m[:num_rec]).reshape(-1),
@@ -571,8 +672,6 @@ class BlockCodec:
         """Parse a block on the device and transform its streams (the part
         of the GENERIC compress before the sections are coded)."""
         sh, st, ds = self.shape, self.settings, self.dataset
-        if ds.color_space:
-            raise DsrcException(_CS_MSG)
         dev = self.device
         nbytes = len(block)
         data_np = np.zeros(sh.cap, np.uint8)
@@ -584,12 +683,19 @@ class BlockCodec:
         num_rec = int(parsed.num_records)
         seq_len_np = to_numpy(parsed.seq_len)[:num_rec]
         qual_len_np = to_numpy(parsed.qual_len)[:num_rec]
-        if not (seq_len_np == qual_len_np).all():
+        seq_start, seq_len = parsed.seq_start, parsed.seq_len
+        if ds.color_space:
+            # a primer base, then one colour digit per quality value
+            if not (seq_len_np == qual_len_np + 1).all():
+                raise DsrcException("color-space length mismatch")
+            seq_start = seq_start + 1
+            live = torch.arange(sh.rcap, device=dev) < num_rec
+            seq_len = torch.where(live, torch.clamp(seq_len - 1, min=0), 0)
+        elif not (seq_len_np == qual_len_np).all():
             raise DsrcException("sequence/quality length mismatch")
         titles, t_total, _ = P.gather_stream(data, parsed.title_start,
                                              parsed.title_len, sh.cap)
-        seqs, s_total, _ = P.gather_stream(data, parsed.seq_start,
-                                           parsed.seq_len, sh.cap)
+        seqs, s_total, _ = P.gather_stream(data, seq_start, seq_len, sh.cap)
         quals, q_total, _ = P.gather_stream(data, parsed.qual_start,
                                             parsed.qual_len, sh.cap)
         t_total, s_total, q_total = int(t_total), int(s_total), int(q_total)
@@ -608,11 +714,18 @@ class BlockCodec:
                 raise DsrcException(
                     f"quality bytes span [{qmin}, {qmax}] — outside the "
                     f"reversible range for any FASTQ offset")
-        dna, dna_total, qvals = _forward_transform(
-            seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
+        primers = None
+        if ds.color_space:
+            primers = to_numpy(T.take_clip(
+                data, parsed.seq_start.to(torch.int64)))[:num_rec]
+            dna, dna_total, qvals = _forward_transform_cs(
+                seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
+        else:
+            dna, dna_total, qvals = _forward_transform(
+                seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
         return GenericStreams(parsed, num_rec, qual_len_np, titles, t_total,
                               seqs, s_total, quals, q_total, offset, dna,
-                              int(dna_total), qvals)
+                              int(dna_total), qvals, primers)
 
     def _compress_generic(self, block: np.ndarray
                           ) -> Tuple[bytes, StreamsInfo]:
@@ -623,13 +736,17 @@ class BlockCodec:
         w = BitWriter()
         w.put_byte(BLOCK_GENERIC)
         flags = (FLAG_CRC if st.calculate_crc32 else 0) | \
+            (FLAG_COLOR_SPACE if ds.color_space else 0) | \
             (FLAG_PLUS_REP if ds.plus_repetition else 0)
         w.put_varint(num_rec)
         w.put_byte(flags)
         w.put_byte(offset)
         pack_ints(w, g.qual_len)
+        if ds.color_space:
+            pack_ints(w, g.primers.astype(np.int64))
         titles_np = to_numpy(g.titles)
         if st.calculate_crc32:
+            # colour space: the sequence stream holds no primer
             w.put_uint32(crc32(titles_np[:g.t_total]))
             w.put_uint32(crc32(to_numpy(g.seqs[:g.s_total])))
             w.put_uint32(crc32(to_numpy(g.quals[:g.q_total])))
@@ -658,11 +775,16 @@ class BlockCodec:
         num_rec = r.get_varint()
         flags = r.get_byte()
         offset = r.get_byte()
-        if flags & FLAG_COLOR_SPACE or ds.color_space:
-            raise DsrcException(_CS_MSG)
         qual_len_np = unpack_ints(r).astype(np.int64)
         if num_rec > sh.rcap or len(qual_len_np) != num_rec:
             raise DsrcException("generic block: bad record count")
+        primers = None
+        if flags & FLAG_COLOR_SPACE:
+            primers = unpack_ints(r).astype(np.uint8)
+            if len(primers) != num_rec:
+                raise DsrcException("generic block: bad primer count")
+        elif ds.color_space:
+            raise DsrcException("colour-space archive block without primers")
         crcs = None
         if flags & FLAG_CRC:
             crcs = (r.get_uint32(), r.get_uint32(), r.get_uint32())
@@ -674,11 +796,13 @@ class BlockCodec:
         qvals, q_total = Q.decode_quality(r, sh.cap, qlen_pad, num_rec,
                                           st.quality_order, hash_val)
         dna, _ = DNA.decode_dna(r, sh.cap, st.dna_order, dev)
-        seq, qual = _backward_transform(dna, qvals, q_total, offset, sh.cap,
-                                        st.lossy_quality)
+        backward = _backward_transform_cs if ds.color_space \
+            else _backward_transform
+        seq, qual = backward(dna, qvals, q_total, offset, sh.cap,
+                             st.lossy_quality)
         text = native.layout_records(
             num_rec, titles_np, title_len_np, to_numpy(seq[:q_total]),
-            to_numpy(qual[:q_total]), qual_len_np, None, False,
+            to_numpy(qual[:q_total]), qual_len_np, primers, ds.color_space,
             ds.plus_repetition)
         if crcs is not None:
             got = _stream_crcs_from_text(text, ds)
@@ -723,6 +847,36 @@ def _backward_transform(dna: torch.Tensor, qual_vals: torch.Tensor, n: int,
     else:
         seq_sym, qv = T.backward_lossless(dna, qual_vals, active)
     seq = T.dna_unmap(torch.where(active, seq_sym, 0))
+    qual = torch.where(active, qv + offset, 0).to(torch.uint8)
+    return seq, qual
+
+
+def _forward_transform_cs(seqs: torch.Tensor, quals: torch.Tensor,
+                          s_total: int, offset: int, cap: int, lossy: bool):
+    """Colour space: seqs are the digit streams (primers stripped) ->
+    (colour indices, dna_total, qual values or lossy bins).  Nothing folds;
+    under lossy coding a colour above 3 forces bin 0."""
+    active = torch.arange(cap, device=seqs.device) < s_total
+    col = T.color_remap(seqs)
+    qv = torch.clamp(torch.where(active, quals.to(torch.int32) - offset, 0),
+                     0, 255)
+    if lossy:
+        bins = T.quality_bin(qv)
+        return col, s_total, torch.where((col > 3) & active, 0, bins)
+    return col, s_total, qv
+
+
+def _backward_transform_cs(col: torch.Tensor, qual_vals: torch.Tensor,
+                           n: int, offset: int, cap: int, lossy: bool):
+    """Inverse of _forward_transform_cs; under lossy coding bin 0 decodes as
+    '.'."""
+    active = torch.arange(cap, device=col.device) < n
+    if lossy:
+        qv = T.quality_unbin(qual_vals)
+        col = torch.where((qual_vals == 0) & active, 4, col)
+    else:
+        qv = qual_vals
+    seq = T.color_unmap(torch.where(active, col, 0))
     qual = torch.where(active, qv + offset, 0).to(torch.uint8)
     return seq, qual
 

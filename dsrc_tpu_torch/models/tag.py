@@ -9,7 +9,8 @@ text in one shared byte stream with (field, position) contexts.  Records
 that deviate from the modal structure go raw on the side; a block with no
 dominant structure is coded raw as one order-1 byte stream.  The byte
 streams go through ops/ctx.py (K1 to encode, K3 to decode) on the codec's
-device.  Semi title mode 2 uses analyze_value_fields /
+device.  GENERIC blocks and semi title mode 0 code their titles with
+encode_tags / decode_tags; semi title mode 2 uses analyze_value_fields /
 render_value_titles: every field constant or numeric, coded on the device
 as an [R, F] value matrix.
 """

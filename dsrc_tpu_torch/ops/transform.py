@@ -14,6 +14,7 @@ import torch
 
 DNA_CHARS = b"ACGTNRWSKMDVHBYXU.-"
 DNA_NSYM = len(DNA_CHARS)  # 19
+COLOR_CHARS = b"0123."      # SOLiD colour-space digits (+ unknown)
 INVALID_SYM = 31
 
 LOSSY_BOUNDS = (2, 10, 20, 25, 30, 35, 40)       # bin = #bounds <= q
@@ -32,6 +33,17 @@ def _lut(chars: bytes, fill: int) -> torch.Tensor:
 
 _DNA_LUT = _lut(DNA_CHARS, INVALID_SYM)
 _DNA_UNLUT = torch.tensor(list(DNA_CHARS), dtype=torch.uint8)
+_COLOR_LUT = _lut(COLOR_CHARS, INVALID_SYM)
+_COLOR_UNLUT = torch.tensor(list(COLOR_CHARS), dtype=torch.uint8)
+
+
+def _unmap(syms: torch.Tensor, unlut: torch.Tensor) -> torch.Tensor:
+    """Dense indices -> uint8 chars; an index outside the alphabet gives
+    0."""
+    s = syms.to(torch.int64)
+    ok = (s >= 0) & (s < len(unlut))
+    chars = unlut.to(syms.device)[torch.clamp(s, 0, len(unlut) - 1)]
+    return torch.where(ok, chars, torch.zeros_like(chars))
 
 
 def dna_remap(data: torch.Tensor) -> torch.Tensor:
@@ -41,11 +53,17 @@ def dna_remap(data: torch.Tensor) -> torch.Tensor:
 
 
 def dna_unmap(syms: torch.Tensor) -> torch.Tensor:
-    """Dense indices -> uint8 chars; an index outside [0, 19) gives 0."""
-    s = syms.to(torch.int64)
-    ok = (s >= 0) & (s < DNA_NSYM)
-    chars = _DNA_UNLUT.to(syms.device)[torch.clamp(s, 0, DNA_NSYM - 1)]
-    return torch.where(ok, chars, torch.zeros_like(chars))
+    return _unmap(syms, _DNA_UNLUT)
+
+
+def color_remap(data: torch.Tensor) -> torch.Tensor:
+    """uint8 colour-space bytes -> indices into "0123." (INVALID_SYM
+    outside it), int32."""
+    return _COLOR_LUT.to(data.device)[data.to(torch.int64)]
+
+
+def color_unmap(syms: torch.Tensor) -> torch.Tensor:
+    return _unmap(syms, _COLOR_UNLUT)
 
 
 def compact(values: torch.Tensor, keep: torch.Tensor):

@@ -25,16 +25,21 @@ _STOP = object()
 
 
 class _ErrorSlot:
-    """First-error-wins (reference MultithreadedErrorHandler)."""
+    """First-error-wins (reference MultithreadedErrorHandler); on_error
+    runs once, at the first error."""
 
-    def __init__(self):
+    def __init__(self, on_error: Optional[Callable[[], None]] = None):
         self._lock = threading.Lock()
+        self._on_error = on_error
         self.error: Optional[BaseException] = None
 
     def set(self, exc: BaseException) -> None:
         with self._lock:
-            if self.error is None:
+            first = self.error is None
+            if first:
                 self.error = exc
+        if first and self._on_error is not None:
+            self._on_error()
 
     def check(self) -> None:
         if self.error is not None:
@@ -42,18 +47,21 @@ class _ErrorSlot:
 
 
 def ordered_parallel_map(items: Iterator, fn: Callable, num_workers: int,
-                         depth: int = 0):
+                         depth: int = 0,
+                         on_error: Optional[Callable[[], None]] = None):
     """Apply fn to items on worker threads, yielding results in input order.
 
-    The in-queue is bounded (backpressure like TDataPool); results are
-    re-merged by index like the reference's ordered writers.  Exceptions from
-    any thread are re-raised in the consumer.
+    The in-queue is bounded (backpressure like TDataPool); workers take
+    items in input order; results are re-merged by index like the
+    reference's ordered writers.  Exceptions from any thread are re-raised
+    in the consumer; on_error runs at the first one (to release calls of fn
+    that wait on one another: items left after an error are skipped).
     """
     num_workers = max(1, num_workers)
     depth = depth or num_workers * 4
     inq: "queue.Queue" = queue.Queue(maxsize=depth)
     outq: "queue.Queue" = queue.Queue()
-    err = _ErrorSlot()
+    err = _ErrorSlot(on_error)
 
     def reader():
         try:

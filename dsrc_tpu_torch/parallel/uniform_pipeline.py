@@ -1,5 +1,5 @@
-"""Device math of the UNIFORM and SEMI (title mode 2) block classes: the
-port of dsrc_tpu/parallel/uniform_pipeline.py.
+"""Device math of the UNIFORM and SEMI block classes: the port of
+dsrc_tpu/parallel/uniform_pipeline.py.
 
 Uniform blocks (every record the same byte length) become reshapes of
 [R, rec_bytes]; semi blocks (fixed read length, titles of varying length)
@@ -376,6 +376,37 @@ def decompress_uniform(comp: dict, spec: UniformSpec, rpad: int,
 
 
 # --------------------------------------------------------------------------
+# Semi blocks, title mode 0: quality and DNA as in mode 2; the titles go
+# through the host tag coder (models/tag.py), not through this module.
+# --------------------------------------------------------------------------
+
+def compress_semi(qual_m: torch.Tensor, seq_m: torch.Tensor, num_rec: int,
+                  read_len: int, wire: Wire = WIRE_DEFAULT) -> dict:
+    """qual_m/seq_m: [rpad, read_len] uint8 on the block's device (rows
+    past num_rec zero).  Compressed tensors stay on the device."""
+    wr = wire
+    qenc, qual_mode = _choose_qual_syms(qual_m.to(torch.int32) - 33,
+                                        num_rec, wr)
+    return dict(num_rec=num_rec, qual_mode=qual_mode,
+                qual=encode_positional(qenc, num_rec, wr.qual_a,
+                                       wr.qual_group),
+                dna=pack_dna(seq_m, num_rec, read_len))
+
+
+def decompress_semi(comp: dict, read_len: int, rpad: int, left: bool = False,
+                    wire: Wire = WIRE_DEFAULT):
+    """Mirror of compress_semi.  Returns (qual_m, seq_m [rpad, read_len]
+    uint8), rows past num_rec zero."""
+    num_rec = int(comp["num_rec"])
+    qual = _decode_qual(comp, read_len, rpad, wire, left).to(torch.uint8)
+    packed, exc_bits, _ = comp["dna"]
+    seq = unpack_dna(packed, exc_bits, rpad, read_len)
+    for m in (qual, seq):
+        m[num_rec:] = 0
+    return qual, seq
+
+
+# --------------------------------------------------------------------------
 # Semi blocks, title mode 2: titles tokenized on the host
 # (models/tag.analyze_value_fields) into constant fields and an [rpad, F]
 # int32 numeric VALUE matrix, coded on the device by vertical delta ->
@@ -431,18 +462,11 @@ def compress_semi_tok(vmat: torch.Tensor, v0: torch.Tensor,
     """vmat: [rpad, F] int32 field values (rows past num_rec 0); v0: [F]
     int32 transmitted base values; qual_m/seq_m: [rpad, read_len] uint8.
     All on the block's device."""
-    wr = wire
-    out = {}
+    out = compress_semi(qual_m, seq_m, num_rec, read_len, wire)
     if sum(pcs):
         planes = _value_planes(vmat, v0, pcs)
         out["title"] = encode_positional(planes, num_rec, VAL_A,
-                                         wr.val_group)
-    qenc, qual_mode = _choose_qual_syms(qual_m.to(torch.int32) - 33,
-                                        num_rec, wr)
-    out.update(num_rec=num_rec, qual_mode=qual_mode,
-               qual=encode_positional(qenc, num_rec, wr.qual_a,
-                                      wr.qual_group),
-               dna=pack_dna(seq_m, num_rec, read_len))
+                                         wire.val_group)
     return out
 
 
@@ -461,9 +485,6 @@ def decompress_semi_tok(comp: dict, v0: torch.Tensor, pcs: Tuple[int, ...],
         vmat = _planes_to_values(planes, v0, pcs)
     else:
         vmat = torch.zeros((rpad, len(pcs)), dtype=torch.int32, device=dev)
-    qual = _decode_qual(comp, read_len, rpad, wr, left).to(torch.uint8)
-    packed, exc_bits, _ = comp["dna"]
-    seq = unpack_dna(packed, exc_bits, rpad, read_len)
-    for m in (vmat, qual, seq):
-        m[num_rec:] = 0
+    vmat[num_rec:] = 0
+    qual, seq = decompress_semi(comp, read_len, rpad, left, wr)
     return vmat, qual, seq

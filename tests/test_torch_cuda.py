@@ -393,3 +393,47 @@ def test_one_m1_block_round_trip(cuda):
     cpu_arch = io.BytesIO()
     DsrcModule(params, device="cpu").compress(io.BytesIO(data), cpu_arch)
     assert cpu_arch.getvalue() == arch.getvalue()
+
+
+def _card_equals_cpu(cuda, data, params, kernels):
+    """data round-trips on the card through `kernels`, and the card's
+    archive equals the port's archive on the CPU."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    RK.reset_launch_counts()
+    arch, out = io.BytesIO(), io.BytesIO()
+    DsrcModule(params, device=cuda).compress(io.BytesIO(data), arch)
+    arch.seek(0)
+    DsrcModule(params, device=cuda).decompress(arch, out)
+    assert out.getvalue() == data
+    counts = RK.launch_counts()
+    assert all(counts[k] > 0 for k in kernels), counts
+    cpu_arch = io.BytesIO()
+    DsrcModule(params, device="cpu").compress(io.BytesIO(data), cpu_arch)
+    assert cpu_arch.getvalue() == arch.getvalue()
+    return arch.getvalue()
+
+
+def test_one_mode0_semi_block_card_equals_cpu(cuda):
+    """A SEMI block whose titles carry a free-text field (title mode 0):
+    quality through K1/K2, titles through the tag coder (K1, K3)."""
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    data = "".join(f"@x{'ab'[i % 2]}q.{i} z{i % 3}w UMI_{i * 7 % 997}x\n"
+                   f"ACGTACGTACNNACGTACGT\n+\nIIIIHHHHGG5555IIIIII\n"
+                   for i in range(3000)).encode()
+    arch = _card_equals_cpu(
+        cuda, data, InputParameters(fastq_block_size_bytes=1 << 20),
+        ("rans_encode", "rans_decode", "ctx_decode"))
+    assert ArchiveReader(io.BytesIO(arch)).read_block(0)[0] == 2  # SEMI
+
+
+def test_one_colour_space_block_card_equals_cpu(cuda):
+    """SOLiD reads ('.' present) at -d2 -q2: K1 and K3 on the colour
+    stream."""
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.utils.synth import make_fastq
+    data = make_fastq(3000, 50, color_space=True, n_base_prob=0.01, seed=96)
+    _card_equals_cpu(cuda, data, InputParameters(
+        dna_compression_level=2, quality_compression_level=2,
+        fastq_block_size_bytes=1 << 20), ("rans_encode", "ctx_decode"))

@@ -1,11 +1,13 @@
 """Whole-file behaviour of the PyTorch port on the CPU: the golden archives
 decode byte-exactly, archives cross-decode between the port and dsrc_tpu in
-both directions, the CLI round-trips, and what the port does not cover yet
-(colour space, SEMI title mode 0, -r, distributed) raises DsrcException
-instead of writing other bytes."""
+both directions, the CLI round-trips and extracts record ranges (-r),
+colour-space (SOLiD) input and free-text titles (SEMI title mode 0) go
+through, and what the port does not cover yet (distributed) raises
+DsrcException instead of writing other bytes."""
 import io
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -77,10 +79,23 @@ def test_cli_roundtrip(tmp_path):
 
 
 def test_cli_rejects_what_the_slice_does_not_cover(tmp_path, capsys):
-    arch = tmp_path / "x.xfqz"
-    assert cli.main(["d", "-r0:5", str(DATA + "/golden_semi.xfqz"),
-                     str(arch)], device="cpu") == 1
-    assert "-r" in capsys.readouterr().err
+    """-r extracts records [N, M) through the record API; the CLI rejects
+    a range that is not 0 <= N < M."""
+    out = tmp_path / "five.fastq"
+    golden = DATA + "/golden_semi.xfqz"
+    assert cli.main(["d", "-r0:5", golden, str(out)], device="cpu") == 0
+    want = b"".join(_read("golden_semi.fastq").splitlines(True)[:20])
+    assert out.read_bytes() == want
+    assert cli.main(["d", "-r5:2", golden, str(out)], device="cpu") == 1
+    assert "record range" in capsys.readouterr().err
+
+
+def _solid(n=40, dot_qual=b"I"):
+    """SOLiD reads: primer T, then "0123." six times, quality 'I' but
+    dot_qual at each '.'."""
+    return b"".join(b"@s%d\nT%s\n+\n%s\n" % (i, b"0123." * 6,
+                                              (b"IIII" + dot_qual) * 6)
+                    for i in range(n))
 
 
 @pytest.mark.parametrize("kw", [dict(dna_compression_level=2),
@@ -88,8 +103,8 @@ def test_cli_rejects_what_the_slice_does_not_cover(tmp_path, capsys):
                                 dict(lossy_quality=True),
                                 dict(calculate_crc32=True)])
 def test_generic_settings_raise(kw):
-    """GENERIC settings code fixed-width reads as GENERIC blocks now; they
-    raise only on colour-space (SOLiD) input, which is not ported."""
+    """GENERIC settings code fixed-width reads as GENERIC blocks, and
+    colour-space (SOLiD) input as well."""
     data = b"".join(_read("golden_uniform.fastq").splitlines(True)[:800])
     arch, out = io.BytesIO(), io.BytesIO()
     _port(**kw).compress(io.BytesIO(data), arch)
@@ -98,15 +113,20 @@ def test_generic_settings_raise(kw):
         assert out.getvalue().split(b"\n")[0::4] == data.split(b"\n")[0::4]
     else:
         assert out.getvalue() == data
-    solid = b"".join(b"@s%d\nT%s\n+\n%s\n" % (i, b"0123." * 6, b"I" * 30)
-                     for i in range(40))
-    with pytest.raises(DsrcException, match="colour-space"):
-        _port(**kw).compress(io.BytesIO(solid), io.BytesIO())
+    solid = _solid()
+    arch, out = io.BytesIO(), io.BytesIO()
+    _port(**kw).compress(io.BytesIO(solid), arch)
+    _port(**kw).decompress(io.BytesIO(arch.getvalue()), out)
+    # lossy: quality 'I' (40) keeps bin 7, whose representative is 40; a
+    # '.' forces bin 0, whose representative is 0 ('!')
+    assert out.getvalue() == (_solid(dot_qual=b"!")
+                              if kw.get("lossy_quality") else solid)
 
 
 def test_generic_inputs_and_archives_raise():
     """Variable-length reads and the golden GENERIC archive go through the
-    GENERIC class now; a colour-space GENERIC block still raises."""
+    GENERIC class; a colour-space GENERIC block carries its primers (flag
+    FLAG_COLOR_SPACE) and decodes; one that lacks them raises."""
     from dsrc_tpu_torch.models import block as TB
     variable = make_fastq_fast(300, 50, seed=63)[:-1] + b"\n"
     lines = variable.split(b"\n")
@@ -123,18 +143,33 @@ def test_generic_inputs_and_archives_raise():
     assert out.getvalue() == _read("golden_generic.fastq")
     codec = TB.BlockCodec(TB.BlockShape.for_block_size(BLOCK),
                           InputParameters().to_settings(),
-                          TB.DatasetType(quality_offset=33), device="cpu")
-    blob = bytes([TB.BLOCK_GENERIC, 1, TB.FLAG_COLOR_SPACE, 33])
-    with pytest.raises(DsrcException, match="colour-space"):
-        codec.decompress(blob)
+                          TB.DatasetType(quality_offset=33, color_space=True),
+                          device="cpu")
+    solid = np.frombuffer(_solid(), np.uint8)
+    blob, _ = codec.compress(solid)
+    assert blob[0] == TB.BLOCK_GENERIC and blob[2] & TB.FLAG_COLOR_SPACE
+    np.testing.assert_array_equal(codec.decompress(blob), solid)
+    no_primers = bytearray(blob)
+    no_primers[2] &= ~TB.FLAG_COLOR_SPACE
+    with pytest.raises(DsrcException, match="without primers"):
+        codec.decompress(bytes(no_primers))
 
 
 def test_free_text_titles_raise():
-    """SEMI title mode 0 (a text field in the titles) is not ported."""
+    """Titles with a text field make a SEMI block of title mode 0, which
+    round-trips."""
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    from dsrc_tpu_torch.models import block as TB
     data = make_fastq_fast(300, 50, seed=64)
     data = data.replace(b" length=", b" run_abc length=", 1)
-    with pytest.raises(DsrcException, match="title mode 0"):
-        _port().compress(io.BytesIO(data), io.BytesIO())
+    arch, out = io.BytesIO(), io.BytesIO()
+    _port().compress(io.BytesIO(data), arch)
+    blob = ArchiveReader(io.BytesIO(arch.getvalue())).read_block(0)
+    d = TB.parse_semi_block(TB.BitReader(blob[1:]),
+                            TB.BlockShape.for_block_size(BLOCK).cap, "cpu")
+    assert blob[0] == TB.BLOCK_SEMI and d["mode"] == 0
+    _port().decompress(io.BytesIO(arch.getvalue()), out)
+    assert out.getvalue() == data
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

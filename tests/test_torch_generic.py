@@ -16,29 +16,23 @@ the CPU, where K1, K2 and K3 run their plain versions.
 
 The reference's encoders are run with their rANS wavefront
 (ops/rans.py:rans_encode_from_freqs) split off and jitted once per shape
-(jax_codec below): the same functions composed the same way, with fewer
-compiles.  Blocks are one 1 << 17-byte BlockShape throughout.
+(tests/torch_jax_codec.py): the same functions composed the same way,
+with fewer compiles.  Blocks are one 1 << 17-byte BlockShape throughout.
 """
 import io
 import os
 
-import jax
 import numpy as np
 import pytest
 
 from dsrc_tpu import api as JAPI
 from dsrc_tpu.config import InputParameters as JaxParams
 from dsrc_tpu.models import block as JB
-from dsrc_tpu.models import dna as JDNA
-from dsrc_tpu.models import quality as JQ
-from dsrc_tpu.models import tag as JTAG
-from dsrc_tpu.ops import ctx as JC
-from dsrc_tpu.ops import rans as JR
-from dsrc_tpu.ops import streams as JS
 from dsrc_tpu_torch import api as TAPI
 from dsrc_tpu_torch.api import DsrcModule
 from dsrc_tpu_torch.config import DsrcException, InputParameters
 from dsrc_tpu_torch.models import block as TB
+from torch_jax_codec import jax_codec  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -69,45 +63,6 @@ def test_golden_generic_archives_both_ways(name, kw):
     DsrcModule(InputParameters(fastq_block_size_bytes=BLOCK, **kw),
                device="cpu").compress(io.BytesIO(fq), arch)
     assert arch.getvalue() == xz
-
-
-# --------------------------------------------------------------------------
-# the reference, with its wavefront compiled once per shape
-# --------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def jax_codec():
-    """A context manager under which dsrc_tpu's encoders return their
-    wavefront inputs (freq, cum, active) in place of (payload, nwords,
-    states), and its serialize_rans runs the real wavefront, jitted once
-    per shape, before writing.  The result is the reference's bytes.  Its
-    decode-after-encode CRC self check (-c), which writes nothing, is
-    skipped.  JAX's caches, which now hold the stubbed traces, are cleared
-    afterwards."""
-    import contextlib
-    real = JR.rans_encode_from_freqs
-    wavefront = jax.jit(real)
-    serialize = JS.serialize_rans
-
-    def ser(w, n, payload, nwords, states):
-        if np.asarray(states).dtype == bool:
-            payload, nwords, states = wavefront(payload, nwords, states)
-        serialize(w, n, payload, nwords, states)
-
-    @contextlib.contextmanager
-    def stubbed():
-        with pytest.MonkeyPatch.context() as mp:
-            for mod in (JC, JR):
-                mp.setattr(mod, "rans_encode_from_freqs",
-                           lambda f, c, a: (f, c, a))
-            for mod in (JDNA, JQ, JTAG):
-                mp.setattr(mod, "serialize_rans", ser)
-            mp.setattr(JB.BlockCodec, "verify_checksum",
-                       lambda self, blob: True)
-            yield
-
-    yield stubbed
-    jax.clear_caches()
 
 
 def _codecs(block, **kw):
@@ -291,12 +246,26 @@ def test_lossy_4level_takes_the_wide_lags():
     assert TQ._coarse_bits(6, 2, 1 << 16) == (2, 3, 2)
 
 
-def test_colour_space_still_raises():
+def test_colour_space_still_raises(jax_codec):
+    """Colour space (SOLiD) was the one GENERIC input the port refused; it
+    now writes the reference's archive (tests/test_torch_colour.py covers
+    the settings) and decodes it.  A colour-space block whose reads lack
+    the primer base still raises."""
     solid = b"".join(b"@s%d\nT%s\n+\n%s\n" % (i, b"0123." * 6, b"I" * 30)
                      for i in range(40))
-    with pytest.raises(DsrcException, match="colour-space"):
-        DsrcModule(InputParameters(dna_compression_level=1),
-                   device="cpu").compress(io.BytesIO(solid), io.BytesIO())
+    kw = dict(fastq_block_size_bytes=BLOCK, dna_compression_level=1)
+    jarch = io.BytesIO()
+    with jax_codec():
+        JAPI.DsrcModule(JaxParams(**kw)).compress(io.BytesIO(solid), jarch)
+    tmod = DsrcModule(InputParameters(**kw), device="cpu")
+    tarch, out = io.BytesIO(), io.BytesIO()
+    tmod.compress(io.BytesIO(solid), tarch)
+    assert tarch.getvalue() == jarch.getvalue()
+    tmod.decompress(io.BytesIO(jarch.getvalue()), out)
+    assert out.getvalue() == solid
+    with pytest.raises(DsrcException, match="color-space length"):
+        tmod.compress(io.BytesIO(solid + b"@x\n0123\n+\nIIII\n"),
+                      io.BytesIO())
 
 
 def test_gather_and_scatter_streams_equal_jax():

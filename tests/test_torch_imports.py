@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing dsrc_tpu_torch, every one of its
-modules, chip_smoke.py, k1_variants.py and k3_variants.py loads neither
-JAX nor anything of dsrc_tpu.
+modules (the record API dsrc_tpu_torch.archive_api and the examples
+among them), chip_smoke.py, k1_variants.py and k3_variants.py loads
+neither JAX nor anything of dsrc_tpu.
 
 Checked in a subprocess, because this test process has JAX loaded already
 (tests/conftest.py)."""
@@ -21,6 +22,11 @@ for script in ("chip_smoke", "k1_variants", "k3_variants"):
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dsrc_tpu_torch.api import DsrcModule
 DsrcModule(device="cpu")
+import dsrc_tpu_torch.archive_api
+from dsrc_tpu_torch import DsrcArchive
+DsrcArchive(device="cpu")
+assert "dsrc_tpu_torch.archive_api" in sys.modules
+assert "dsrc_tpu_torch.examples.example2" in sys.modules
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "dsrc_tpu"))
 print("LOADED", len([n for n in sys.modules
