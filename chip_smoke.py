@@ -49,17 +49,33 @@ script exits non-zero without printing a result:
   9 record_api  about 200,000 records through DsrcArchive(device="cuda")
              and back in order; records across the block boundary of the
              128 MB -m1 archive through read_records and through CLI -r
- 10 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
+ 10 mesh     the block mesh over [cuda:0, cuda:0], one host thread an
+             entry: dryrun; DsrcModule with that mesh patched in on the
+             64 MB SEMI file (four batches of two blocks) and the 64 MB
+             mode-0 file (compress one-device, as block 0 is no mesh
+             class), each archive equal to the one-device card archive and
+             each mode-0 blob parsed once on decode; with two or more
+             cards, the SEMI file through DsrcModule(device="cuda") over
+             all of them beside the one-device path (else "multi_card":
+             false)
+ 11 distributed  two processes on the one card (gloo), each
+             DsrcModule(device="cuda:0").compress(..., distributed=True):
+             the 64 MB SEMI file and the 128 MB -m1 file, each archive
+             equal to the single-process card archive and decompressed on
+             the card to the input; with two or more cards, the SEMI file
+             under NCCL, one process a card
+ 12 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
              decode byte-exactly on the card, and compressing their inputs
              on the card writes the golden archives' exact bytes
- 11 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
+ 13 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
              block's round trip again under torch.profiler: the device's
              busy share of the wall time, its time by kernel, each
              kernel's device time and the launch counts
 
-Phases 4-9 are the main paths: each run sets the launch counts to 0,
+Phases 4-11 are the main paths: each run sets the launch counts to 0,
 drives the path and reads the counts, and fails when a kernel of that path
-was not launched.  The lines before the last are the nvidia-smi line and
+was not launched (a distributed child counts its own launches and prints
+them).  The lines before the last are the nvidia-smi line and
 the kernels line; the last line is {"ok": true, "device": {...}}.  Needs
 one CUDA card and nvcc; exits non-zero without one.
 """
@@ -1041,7 +1057,8 @@ def semi_mode0_phase(device, data: bytes):
     kern = ("rans_encode", "rans_decode", "ctx_decode")
     res = round_trip(device, "semi_mode0", data, None, kern,
                      keep_archive=True)
-    modes = semi_title_modes(res.pop("archive"))
+    archive = res.pop("archive")
+    modes = semi_title_modes(archive)
     if modes != [0] * len(modes):
         raise AssertionError(f"semi_mode0: title modes {modes}, not all 0")
     res["title_modes"] = modes
@@ -1055,7 +1072,7 @@ def semi_mode0_phase(device, data: bytes):
                              "from the port's archive on the CPU")
     r8["equals_cpu_archive"] = True
     emit(r8)
-    return [res, r8], block0
+    return [res, r8], block0, archive
 
 
 def solid_of_size(nbytes: int, seed: int) -> bytes:
@@ -1224,6 +1241,308 @@ def record_api_phase(device, m1_data: bytes, m1_archive: bytes,
     return out
 
 
+# --------------------------------------------------------------------------
+# The mesh and distributed compression
+# --------------------------------------------------------------------------
+
+class count_calls:
+    """Counts the calls of obj.<name> inside a with block: `as n` gives a
+    one-element list."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.n = obj, name, [0]
+
+    def __enter__(self):
+        real = self.real = getattr(self.obj, self.name)
+        n = self.n
+
+        def counted(*a, **k):
+            n[0] += 1
+            return real(*a, **k)
+        setattr(self.obj, self.name, counted)
+        return n
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
+
+
+class mesh_of:
+    """Inside a with block, DsrcModule takes `devices` as its mesh (None:
+    the one-device path) in place of api.local_device_mesh's answer."""
+
+    def __init__(self, devices):
+        self.devices = devices
+
+    def __enter__(self):
+        from dsrc_tpu_torch import api as A
+        self.real = A.local_device_mesh
+        A.local_device_mesh = lambda device: self.devices
+
+    def __exit__(self, *exc):
+        from dsrc_tpu_torch import api as A
+        A.local_device_mesh = self.real
+
+
+def _module_round_trip(device, devices, data: bytes):
+    """data through DsrcModule(device=device).compress and decompress with
+    `devices` as the mesh; (archive, decoded text, compress s, decompress
+    s, counts of mesh paths, mesh batches and tag-section decodes)."""
+    import torch
+    from dsrc_tpu_torch import api as A
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.models import tag as TAG
+    from dsrc_tpu_torch.parallel import mesh as M
+    mod = DsrcModule(device=device)
+    arch, back = io.BytesIO(), io.BytesIO()
+    counts = {}
+    with mesh_of(devices):
+        with count_calls(A, "_mesh_compress_results") as path, \
+                count_calls(M.MeshUniformCodec, "compress_blocks") as nu, \
+                count_calls(M.MeshSemiCodec, "compress_blocks") as ns:
+            t0 = time.perf_counter()
+            mod.compress(io.BytesIO(data), arch)
+            comp_s = time.perf_counter() - t0
+        counts.update(compress_mesh_path=path[0],
+                      compress_batches=nu[0] + ns[0])
+        arch.seek(0)
+        with count_calls(A, "_mesh_decompress_results") as path, \
+                count_calls(M.MeshUniformCodec, "decompress_blocks") as nu, \
+                count_calls(M.MeshSemiCodec, "decompress_blocks") as ns, \
+                count_calls(TAG, "decode_tags") as tags:
+            t0 = time.perf_counter()
+            mod.decompress(arch, back)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+        counts.update(decompress_mesh_path=path[0],
+                      decompress_batches=nu[0] + ns[0],
+                      tag_section_decodes=tags[0])
+    return arch.getvalue(), back.getvalue(), comp_s, dec_s, counts
+
+
+def _mesh_run(device, devices, name: str, data: bytes, one_archive: bytes,
+              kernels) -> dict:
+    """Compress and decompress data through DsrcModule with `devices` as
+    its mesh, launch counts set to 0 just before and read just after; the
+    archive must equal the one-device card archive and the decode be
+    byte-exact.  Also counts the mesh batches and the tag-section decodes
+    (title mode 0)."""
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    RK.reset_launch_counts()
+    arch, text, comp_s, dec_s, counts = _module_round_trip(device, devices,
+                                                           data)
+    launches = RK.launch_counts()
+    if arch != one_archive:
+        raise AssertionError(f"{name}: the mesh archive differs from the "
+                             f"one-device card archive")
+    if text != data:
+        raise AssertionError(f"{name}: the mesh round trip is not "
+                             f"byte-exact")
+    for k in kernels:
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: kernel {k} was not launched on "
+                                 f"the mesh path")
+    modes = semi_title_modes(arch)
+    mb = len(data) / MB
+    return {"phase": "mesh", "path": name,
+            "devices": [str(d) for d in devices],
+            "input_bytes": len(data), "archive_bytes": len(arch),
+            "equals_one_device_archive": True, "blocks": len(modes),
+            "title_modes": modes, **counts,
+            "compress_s": comp_s, "decompress_s": dec_s,
+            "compress_MBps": mb / comp_s, "decompress_MBps": mb / dec_s,
+            "launches": launches}
+
+
+def _all_cards(device, semi: bytes, semi_archive: bytes) -> dict:
+    """The SEMI file through DsrcModule(device="cuda"), which takes every
+    visible card as its mesh, beside the one-device path on the same
+    cards in the same call, in the order mesh, one, one, mesh."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.parallel import mesh as M
+    cards = M.local_device_mesh("cuda")
+    mb = len(semi) / MB
+    rates = {"mesh": [], "one_device": []}
+    RK.reset_launch_counts()
+    for path in ("mesh", "one_device", "one_device", "mesh"):
+        arch, back = io.BytesIO(), io.BytesIO()
+        mod = DsrcModule(device="cuda")
+        with mesh_of(cards if path == "mesh" else None):
+            t0 = time.perf_counter()
+            mod.compress(io.BytesIO(semi), arch)
+            t1 = time.perf_counter()
+            arch.seek(0)
+            mod.decompress(arch, back)
+            t2 = time.perf_counter()
+        if arch.getvalue() != semi_archive or back.getvalue() != semi:
+            raise AssertionError(f"mesh: DsrcModule over all cards ({path})"
+                                 f" differs from the one-device archive")
+        rates[path].append({"compress_MBps": mb / (t1 - t0),
+                            "decompress_MBps": mb / (t2 - t1)})
+    return {"devices": [str(d) for d in cards], **rates,
+            "launches": RK.launch_counts()}
+
+
+def mesh_phase(device, semi: bytes, semi_archive: bytes, umi: bytes,
+               umi_archive: bytes):
+    """The mesh over [cuda:0, cuda:0] (one host thread an entry): dryrun,
+    then DsrcModule with that mesh on the 64 MB SEMI mode-2 file (four
+    batches of two 8 MB blocks) and on the 64 MB mode-0 (UMI) file (block
+    0 is not a mesh class, so compress takes the one-device path; the
+    decode takes the mesh and parses each mode-0 blob once).  With two or
+    more cards, the SEMI file through DsrcModule(device="cuda") over all of
+    them, beside the one-device path."""
+    import torch
+    from dsrc_tpu_torch.parallel import mesh as M
+    devices = [device, device]
+    t0 = time.perf_counter()
+    M.dryrun(devices)
+    out = {"phase": "mesh", "nvidia_smi": card_info(),
+           "dryrun_s": time.perf_counter() - t0}
+    runs = [_mesh_run(device, devices, "semi_64MB", semi, semi_archive,
+                      ("rans_encode", "rans_decode"))]
+    if runs[0]["compress_batches"] != 4 or \
+            runs[0]["decompress_batches"] != 4:
+        raise AssertionError(f"mesh: the SEMI file took "
+                             f"{runs[0]['compress_batches']} batches, not 4")
+    runs.append(_mesh_run(device, devices, "semi_mode0_64MB", umi,
+                          umi_archive, ("rans_encode", "rans_decode",
+                                        "ctx_decode")))
+    if runs[1]["decompress_mesh_path"] != 1 or \
+            runs[1]["tag_section_decodes"] != runs[1]["title_modes"].count(0):
+        raise AssertionError("mesh: a mode-0 blob's tag section was decoded "
+                             "more than once, or not through the mesh")
+    out["multi_card"] = torch.cuda.device_count() >= 2
+    if out["multi_card"]:
+        out["all_cards"] = _all_cards(device, semi, semi_archive)
+    out["runs"] = runs
+    emit(out)
+    return out
+
+
+def _distributed_child(argv) -> int:
+    """One process of the distributed phase: chip_smoke.py
+    --distributed-child RANK WORLD PORT IN OUT PRESET BLOCK_BYTES BACKEND
+    (gloo: every process on cuda:0; nccl: process r on cuda:r)."""
+    import torch
+    import torch.distributed as dist
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    rank, world, port, src, dst, preset, block, backend = argv
+    card = torch.device("cuda", int(rank) if backend == "nccl" else 0)
+    torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    params = InputParameters.preset(int(preset)) if int(preset) else \
+        InputParameters()
+    params.fastq_block_size_bytes = int(block)
+    RK.reset_launch_counts()
+    t0 = time.perf_counter()
+    DsrcModule(params, device=card).compress(src, dst, distributed=True)
+    torch.cuda.synchronize()
+    emit({"rank": int(rank), "compress_s": time.perf_counter() - t0,
+          "launches": RK.launch_counts()})
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_run(device, name: str, data: bytes, one_archive: bytes,
+                    preset: int, block: int, world: int = 2,
+                    backend: str = "gloo", timeout: int = 300) -> dict:
+    """`world` processes, each DsrcModule(device=its card).compress(in,
+    out, distributed=True): under gloo all on cuda:0, under nccl one card
+    a process.  The archive must equal the single-process card archive
+    and decompress on the card to the input.  A child that fails or
+    outlives the timeout fails the phase."""
+    import socket
+    import torch
+    from dsrc_tpu_torch.api import DsrcModule
+    tmp = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    src, dst = os.path.join(tmp, name + ".fastq"), \
+        os.path.join(tmp, name + ".xfqz")
+    with open(src, "wb") as f:
+        f.write(data)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--distributed-child",
+         str(r), str(world), str(port), src, dst, str(preset), str(block),
+         backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(
+                    1, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed {name}: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    children = [json.loads([line for line in o.splitlines()
+                            if line.startswith('{"rank"')][-1])
+                for o in outs]
+    with open(dst, "rb") as f:
+        arch = f.read()
+    for path in (src, dst):
+        os.remove(path)
+    if arch != one_archive:
+        raise AssertionError(f"distributed {name}: the archive differs from "
+                             f"the single-process card archive")
+    back = io.BytesIO()
+    t1 = time.perf_counter()
+    DsrcModule(device=device).decompress(io.BytesIO(arch), back)
+    torch.cuda.synchronize()
+    if back.getvalue() != data:
+        raise AssertionError(f"distributed {name}: the archive does not "
+                             f"decompress to the input")
+    launches = {k: sum(c["launches"][k] for c in children)
+                for k in children[0]["launches"]}
+    if launches["rans_encode"] == 0:
+        raise AssertionError(f"distributed {name}: K1 was not launched")
+    return {"path": name, "backend": backend, "processes": world,
+            "input_bytes": len(data),
+            "equals_single_process_archive": True, "wall_s": wall,
+            "MBps": len(data) / MB / wall,
+            "child_compress_s": [c["compress_s"] for c in children],
+            "decompress_s": time.perf_counter() - t1, "launches": launches}
+
+
+def distributed_phase(device, semi: bytes, semi_archive: bytes, big: bytes,
+                      big_archive: bytes) -> dict:
+    """Two gloo processes on the one card: the 64 MB SEMI file (8 MB
+    blocks) and the 128 MB -m1 file (64 MB blocks, one block a process).
+    With two or more cards, also the SEMI file under nccl, one process a
+    card."""
+    import torch
+    runs = [distributed_run(device, "semi_64MB", semi, semi_archive, 0,
+                            8 * MB),
+            distributed_run(device, "generic_m1_128MB", big, big_archive, 1,
+                            64 * MB)]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        runs.append(distributed_run(device, "semi_64MB", semi, semi_archive,
+                                    0, 8 * MB, world=n, backend="nccl"))
+    out = {"phase": "distributed", "nvidia_smi": card_info(), "runs": runs}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1279,22 +1598,26 @@ def main() -> int:
     # a little under 8 and 2 whole 8 MB blocks: the chunker cuts each block
     # at a record boundary
     semi = fastq_of_size(64 * MB - 4096, seed=7, fixed_width=False)
-    res = round_trip(device, "semi", semi)
-    res.pop("archive")
+    res = round_trip(device, "semi", semi, keep_archive=True)
+    semi_archive = res.pop("archive")
     emit(res)
     uni = fastq_of_size(16 * MB - 1024, seed=8, fixed_width=True)
     res_u = round_trip(device, "uniform", uni)
     res_u.pop("archive")
     emit(res_u)
     runs, big_archive = generic_phase(device, big, m1_8mb)
-    mode0_runs, mode0_block = semi_mode0_phase(
-        device, umi_fastq_of_size(64 * MB - 4096, seed=93))
+    umi = umi_fastq_of_size(64 * MB - 4096, seed=93)
+    mode0_runs, mode0_block, umi_archive = semi_mode0_phase(device, umi)
     colour_runs, colour_recs = colour_phase(
         device, solid_of_size(64 * MB - 4096, seed=94))
     rec_api = record_api_phase(device, big, big_archive)
-    del big_archive
-    for r in [res, res_u] + runs + mode0_runs + colour_runs + [rec_api]:
-        for k, n in r["launches"].items():
+    mesh = mesh_phase(device, semi, semi_archive, umi, umi_archive)
+    dist_runs = distributed_phase(device, semi, semi_archive, big,
+                                  big_archive)["runs"]
+    del big_archive, semi_archive, umi_archive, umi
+    for r in ([res, res_u] + runs + mode0_runs + colour_runs + [rec_api]
+              + mesh["runs"] + dist_runs + [mesh.get("all_cards")]):
+        for k, n in (r or {"launches": {}})["launches"].items():
             launches[k] += n
     for k, n in rec_api["range_launches"].items():
         launches[k] += n
@@ -1354,4 +1677,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-child"]:
+        sys.exit(_distributed_child(sys.argv[2:]))
     sys.exit(main())

@@ -5,7 +5,11 @@ and of the reference's `dsrc::lib::DsrcModule` (DsrcModule.h:22).
 first-block dataset analysis -> BlockCodec -> archive, with block 0 run
 inline and the rest on worker threads (parallel/pipeline.py), as dsrc_tpu
 does on one device.  The device defaults to "cuda"; "cpu" runs the plain
-PyTorch versions of the kernels.
+PyTorch versions of the kernels.  Where two or more cards are visible,
+UNIFORM and title mode 2 SEMI blocks run in batches of one block a card
+(parallel/mesh.py); `compress(..., distributed=True)` splits the blocks
+among the processes of a torch.distributed group
+(parallel/distributed.py).  Every path writes the one-device bytes.
 """
 from __future__ import annotations
 
@@ -21,9 +25,15 @@ from .config import (AUTO_QUALITY_OFFSET, DatasetType, DsrcException,
                      FieldMask, InputParameters)
 from .io.archive import ArchiveReader, ArchiveWriter
 from .io.chunker import FastqChunker
-from .models.block import BlockCodec, BlockShape, StreamsInfo
+from .models.block import (BLOCK_SEMI, BLOCK_UNIFORM, BlockCodec,
+                           BlockShape, StreamsInfo, host_stage_uniform,
+                           parse_semi_block, read_uniform_block)
 from .ops import parser as P
+from .parallel import uniform_pipeline as UP
+from .parallel.mesh import (MeshSemiCodec, MeshUniformCodec,
+                            local_device_mesh, on_cards)
 from .parallel.pipeline import ordered_parallel_map
+from .utils.bitio import BitReader
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -154,8 +164,18 @@ class DsrcModule:
                  dsrc_path: Union[str, BinaryIO],
                  distributed: bool = False) -> StreamsInfo:
         if distributed:
-            raise DsrcException("distributed compression is not ported to "
-                                "dsrc_tpu_torch yet; use dsrc_tpu")
+            # every process of the torch.distributed group compresses its
+            # share of the blocks and writes them at computed offsets: the
+            # single-process archive's bytes
+            from .parallel.distributed import compress_distributed
+            if not (isinstance(fastq_path, str)
+                    and isinstance(dsrc_path, str)):
+                raise DsrcException(
+                    "distributed compression requires file paths on a "
+                    "shared filesystem")
+            compress_distributed(fastq_path, dsrc_path, self.params,
+                                 self.device)
+            return StreamsInfo()
         params = self.params
         settings = params.to_settings()
         block_size = params.fastq_block_size_bytes or \
@@ -204,18 +224,27 @@ class DsrcModule:
                 return blob, _count_records(block), info
 
             all_blocks = enumerate(itertools.chain([check(first)], rest()))
-            workers = params.num_workers or 2
-            # block 0 runs inline: when it is a semi block it seeds the semi
-            # hints before worker threads start; a later block that seeds
-            # one waits for the blocks before it (BlockCodec.seed_order)
-            head = [job(next(all_blocks))]
-            if workers > 1:
-                results = itertools.chain(
-                    head, ordered_parallel_map(
-                        all_blocks, job, workers,
-                        on_error=codec.seed_order.cancel))
+            # the mesh only when the first block is a mesh class (UNIFORM or
+            # title mode 2 SEMI); otherwise the worker threads
+            mesh = local_device_mesh(self.device)
+            if mesh is not None and codec._uniform_eligible() and (
+                    host_stage_uniform(first, shape.cap) is not None
+                    or codec.stage_semi_tok_for_mesh(first) is not None):
+                results = _mesh_compress_results(all_blocks, codec, job, mesh)
             else:
-                results = itertools.chain(head, map(job, all_blocks))
+                workers = params.num_workers or 2
+                # block 0 runs inline: when it is a semi block it seeds the
+                # semi hints before worker threads start; a later block that
+                # seeds one waits for the blocks before it
+                # (BlockCodec.seed_order)
+                head = [job(next(all_blocks))]
+                if workers > 1:
+                    results = itertools.chain(
+                        head, ordered_parallel_map(
+                            all_blocks, job, workers,
+                            on_error=codec.seed_order.cancel))
+                else:
+                    results = itertools.chain(head, map(job, all_blocks))
             for blob, nrec, info in results:
                 t0 = time.perf_counter()
                 writer.write_block(blob, nrec)
@@ -251,13 +280,21 @@ class DsrcModule:
                 return text
 
             blobs = read_blobs()
-            workers = self.params.num_workers or 2
-            head = [decode(b) for b in itertools.islice(blobs, 1)]
-            if workers > 1:
-                texts = itertools.chain(
-                    head, ordered_parallel_map(blobs, decode, workers))
+            head_blob = next(blobs, None)
+            if head_blob is not None:
+                blobs = itertools.chain([head_blob], blobs)
+            mesh = local_device_mesh(self.device)
+            if mesh is not None and head_blob is not None and \
+                    head_blob[0] in (BLOCK_UNIFORM, BLOCK_SEMI):
+                texts = _mesh_decompress_results(blobs, codec, mesh)
             else:
-                texts = itertools.chain(head, map(decode, blobs))
+                workers = self.params.num_workers or 2
+                head = [decode(b) for b in itertools.islice(blobs, 1)]
+                if workers > 1:
+                    texts = itertools.chain(
+                        head, ordered_parallel_map(blobs, decode, workers))
+                else:
+                    texts = itertools.chain(head, map(decode, blobs))
             for text in texts:
                 t0 = time.perf_counter()
                 dst.write(text.tobytes())
@@ -270,6 +307,204 @@ class DsrcModule:
 
 def _count_records(block: np.ndarray) -> int:
     return int(np.count_nonzero(block == 10)) // 4
+
+
+# --------------------------------------------------------------------------
+# The mesh: UNIFORM and title mode 2 SEMI blocks in batches of one block a
+# device (parallel/mesh.py); blocks of other classes, and batches shorter
+# than the device list, go through the one-device codec in file order.
+# --------------------------------------------------------------------------
+
+_IN_ORDER = object()    # the SEMI staging is left to the consumer
+
+
+def _mesh_compress_results(items, codec: BlockCodec, job, devices):
+    """Generator of (blob, nrec, info) in file order, over (index, block)
+    items: UNIFORM and title mode 2 SEMI blocks in batches of one block a
+    device of `devices`.  A block of another class, a block that fails the
+    device's uniformity check and a batch shorter than the device list go
+    through job((index, block)), the one-device codec.
+
+    The semi hints are seeded in file order, as on one device: until they
+    are seeded, blocks are staged one at a time on this thread, and a
+    pending UNIFORM batch is flushed before a later block is staged as SEMI
+    (a pending block may fail the uniformity check and seed the hints
+    itself).  Once they are seeded, staging is a pure function of the
+    block, and it runs ahead of the batches on one host thread a device
+    when the devices are cards (mesh.on_cards), as do the one-device
+    codec's blocks of other classes.  Every block the mesh takes is marked
+    decided in the codec's SeedOrder, so that a fallback block never waits
+    for it."""
+    n_dev = len(devices)
+    order = codec.seed_order
+    cap = codec.shape.cap
+
+    def stage(item):
+        """(index, block, UNIFORM host staging, SEMI staging, the
+        one-device codec's result for a block of another class)."""
+        index, block = item
+        u = host_stage_uniform(block, cap)
+        if u is not None:
+            return index, block, u, None, None
+        s = codec.stage_semi_tok_for_mesh(block)
+        if s is not None:
+            return index, block, None, s, None
+        return index, block, None, None, job(item)
+
+    def staged():
+        it = iter(items)
+        for index, block in it:
+            if codec.semi_hints_seeded():
+                rest = itertools.chain([(index, block)], it)
+                yield from (ordered_parallel_map(rest, stage, n_dev)
+                            if on_cards(devices) else map(stage, rest))
+                return
+            yield (index, block, host_stage_uniform(block, cap), _IN_ORDER,
+                   None)
+
+    def gen():
+        ucodec = scodec = None
+        pending = []           # [(payload, index, block)], one batch class
+        kind = None            # the pending batch's class: "u" | "s"
+
+        def flush():
+            nonlocal pending
+            batch, pending = pending, []
+            if len(batch) < n_dev:
+                for _, index, block in batch:
+                    yield job((index, block))
+                return
+            if kind == "u":
+                results, _ = ucodec.compress_blocks(
+                    np.stack([m for (m, _), _, _ in batch]),
+                    [n for (_, n), _, _ in batch])
+                for ((_, n), index, block), res in zip(batch, results):
+                    if res is None:      # failed the uniformity check
+                        yield job((index, block))
+                    else:
+                        order.decided(index)
+                        yield res[0], n, res[1]
+            else:
+                results, _ = scodec.compress_blocks([p for p, _, _ in batch])
+                for (p, _, _), (blob, info) in zip(batch, results):
+                    yield blob, p["num_rec"], info
+
+        for index, block, u, semi, done in staged():
+            if u is not None:
+                mat, num_rec, spec, rpad = u
+                if kind != "u" or not ucodec.matches(None, spec, rpad):
+                    yield from flush()
+                    kind = "u"
+                    ucodec = MeshUniformCodec(devices, spec, rpad)
+                pending.append(((mat, num_rec), index, block))
+                if len(pending) == n_dev:
+                    yield from flush()
+                continue
+            if kind == "u":
+                yield from flush()
+                kind = None
+            if semi is _IN_ORDER:
+                semi = codec.stage_semi_tok_for_mesh(block)
+            if semi is not None:
+                order.decided(index)
+                sdict, read_len, rpad, pcs = semi
+                if kind != "s" or not scodec.matches(read_len, rpad, pcs,
+                                                     UP.WIRE_DEFAULT):
+                    yield from flush()
+                    kind = "s"
+                    scodec = MeshSemiCodec(devices, read_len, rpad, pcs)
+                pending.append((sdict, index, block))
+                if len(pending) == n_dev:
+                    yield from flush()
+                continue
+            yield from flush()
+            kind = None
+            yield done if done is not None else job((index, block))
+        yield from flush()
+
+    return gen()
+
+
+def _mesh_decompress_results(blobs, codec: BlockCodec, devices):
+    """Generator of decoded FASTQ text arrays in archive order: UNIFORM and
+    title mode 2 SEMI blobs in batches of one block a device of
+    `devices`.  Other blobs and short batches are decoded by the codec on
+    its device; a title mode 0 SEMI blob is parsed once, and its parse is
+    what is decoded."""
+    n_dev = len(devices)
+
+    def gen():
+        ucodec = scodec = None
+        pending = []           # [(payload, blob)], one batch class
+        kind = None
+
+        def flush():
+            nonlocal pending
+            batch, pending = pending, []
+            if len(batch) < n_dev:
+                for payload, blob in batch:
+                    yield codec.decompress_parsed_semi(payload) \
+                        if kind == "s" else codec.decompress(blob)
+                return
+            if kind == "u":
+                yield from ucodec.decompress_blocks(
+                    [c for (c, _), _ in batch], [n for (_, n), _ in batch])
+            else:
+                yield from scodec.decompress_blocks([p for p, _ in batch])
+
+        for blob in blobs:
+            if blob[0] == BLOCK_UNIFORM:
+                r = BitReader(blob)
+                r.get_byte()
+                try:
+                    comp_np, spec, num_rec, rpad, wire = \
+                        read_uniform_block(r)
+                except Exception:
+                    yield from flush()
+                    kind = None
+                    yield codec.decompress(blob)
+                    continue
+                if kind != "u" or not ucodec.matches(comp_np, spec, rpad,
+                                                     wire):
+                    yield from flush()
+                    kind = "u"
+                    ucodec = MeshUniformCodec(devices, spec, rpad, wire)
+                pending.append(((comp_np, num_rec), blob))
+                if len(pending) == n_dev:
+                    yield from flush()
+                continue
+            if blob[0] == BLOCK_SEMI:
+                r = BitReader(blob)
+                r.get_byte()
+                try:
+                    p = parse_semi_block(r, codec.shape.cap, codec.device)
+                except Exception:
+                    yield from flush()
+                    kind = None
+                    yield codec.decompress(blob)
+                    continue
+                if p["mode"] == 2:
+                    if kind != "s" or not scodec.matches(
+                            p["read_len"], p["rpad"], p["pcs"], p["wire"]):
+                        yield from flush()
+                        kind = "s"
+                        scodec = MeshSemiCodec(devices, p["read_len"],
+                                               p["rpad"], p["pcs"],
+                                               p["wire"])
+                    pending.append((p, blob))
+                    if len(pending) == n_dev:
+                        yield from flush()
+                    continue
+                yield from flush()
+                kind = None
+                yield codec.decompress_parsed_semi(p)
+                continue
+            yield from flush()
+            kind = None
+            yield codec.decompress(blob)
+        yield from flush()
+
+    return gen()
 
 
 def compress(fastq_path, dsrc_path, device=DEFAULT_DEVICE,

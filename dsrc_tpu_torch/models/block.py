@@ -89,10 +89,11 @@ class StreamsInfo:
 # Uniform-block staging / (de)serialization
 # --------------------------------------------------------------------------
 
-def stage_uniform_block(block: np.ndarray, cap: int, device: torch.device):
-    """Text block -> (mat [rpad, rec_bytes] uint8 on device, num_rec, spec,
-    rpad), or None when the block is not a fixed-layout uniform block.  cap
-    pins one file-wide lane bucket (rpad is transmitted)."""
+def host_stage_uniform(block: np.ndarray, cap: int):
+    """The host half of stage_uniform_block: (mat [rpad, rec_bytes] uint8
+    numpy, num_rec, spec, rpad), or None when the block's layout facts rule
+    out a uniform block.  The mesh checks uniformity on the block's device
+    (parallel/mesh.MeshUniformCodec)."""
     spec = UP.detect_spec(bytes(block[:4096]))
     if spec is None or len(block) % spec.rec_bytes:
         return None
@@ -100,6 +101,17 @@ def stage_uniform_block(block: np.ndarray, cap: int, device: torch.device):
     rpad = _rpad_bucket(max(num_rec, cap // spec.rec_bytes))
     mat = np.zeros((rpad, spec.rec_bytes), np.uint8)
     mat[:num_rec] = np.asarray(block).reshape(num_rec, spec.rec_bytes)
+    return mat, num_rec, spec, rpad
+
+
+def stage_uniform_block(block: np.ndarray, cap: int, device: torch.device):
+    """Text block -> (mat [rpad, rec_bytes] uint8 on device, num_rec, spec,
+    rpad), or None when the block is not a fixed-layout uniform block.  cap
+    pins one file-wide lane bucket (rpad is transmitted)."""
+    staged = host_stage_uniform(block, cap)
+    if staged is None:
+        return None
+    mat, num_rec, spec, rpad = staged
     matd = torch.from_numpy(mat).to(device)
     if not UP.check_uniform(matd, spec, num_rec):
         return None
@@ -447,6 +459,41 @@ def _parse_value_titles(r: BitReader, out: dict) -> None:
             rpad // wire.val_group, wire.val_group)
 
 
+def semi_tok_comp_device(d: dict, device) -> dict:
+    """parse_semi_block dict -> the comp dict of tensors on `device` that
+    UP.decompress_semi / decompress_semi_tok take.  Payloads keep their
+    compact width: K2 reads words past a row's end as 0."""
+    from ..convert import comp_from_numpy
+    return comp_from_numpy(
+        {k: d[k] for k in ("num_rec", "qual_mode", "title", "qual", "dna")
+         if k in d}, device)
+
+
+def decode_parsed_semi(d: dict, device, color_space: bool = False,
+                       plus_repetition: bool = False) -> np.ndarray:
+    """FASTQ text of a semi block that parse_semi_block has parsed (a mode-0
+    dict carries its decoded titles), decoded on `device`."""
+    dev = resolve_device(device)
+    num_rec, read_len, rpad = d["num_rec"], d["read_len"], d["rpad"]
+    comp = semi_tok_comp_device(d, dev)
+    if d["mode"] == 0:
+        titles_np, title_len_np = d["titles_np"], d["title_len_np"]
+        qual_m, seq_m = UP.decompress_semi(comp, read_len, rpad, left=True,
+                                           wire=d["wire"])
+    else:
+        vmat, qual_m, seq_m = UP.decompress_semi_tok(
+            comp, torch.from_numpy(d["v0"]).to(dev), d["pcs"], read_len,
+            rpad, left=True, wire=d["wire"])
+        titles_np, title_len_np = TAG.render_value_titles(
+            to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
+    return native.layout_records(
+        num_rec, titles_np, title_len_np,
+        to_numpy(seq_m[:num_rec]).reshape(-1),
+        to_numpy(qual_m[:num_rec]).reshape(-1),
+        np.full(num_rec, read_len, np.int64), None, color_space,
+        plus_repetition)
+
+
 # --------------------------------------------------------------------------
 # Block codec
 # --------------------------------------------------------------------------
@@ -587,6 +634,69 @@ class BlockCodec:
         self._hints_frozen = True
         return self._pcs_hint
 
+    def semi_hints_seeded(self) -> bool:
+        """True once no later block can seed a semi hint: from then on a
+        block's staging does not depend on the blocks before it."""
+        return bool(self._rpad_hint and self._hints_frozen)
+
+    def stage_semi_tok_for_mesh(self, block: np.ndarray):
+        """Host staging of one title mode 2 block for the mesh codec
+        (parallel/mesh.MeshSemiCodec): (staged dict of numpy arrays,
+        read_len, rpad, pcs), or None when the block is not a mode-2 semi
+        block.  It takes and seeds the same hints as compress, so a block
+        that falls back to compress gets the same bytes.  The caller stages
+        blocks in file order until semi_hints_seeded()."""
+        staged = stage_semi_raw(block, self._rpad_hint)
+        if staged is None:
+            return None
+        read_len, num_rec, qm_a, sm_a, tstream, tl = staged
+        tok = TAG.analyze_value_fields(np.asarray(tstream, np.uint8),
+                                       np.asarray(tl))
+        if tok is None or tok[0].shape[1] > 16:
+            return None
+        rpad = self._semi_rpad(num_rec)
+        vmat, tok_meta = tok
+        v0, pcs = semi_tok_planes(vmat, num_rec, self._semi_pcs_hint())
+        vpad = np.zeros((rpad, vmat.shape[1]), np.int32)
+        vpad[:num_rec] = vmat
+        return (dict(vmat=vpad, v0=v0,
+                     qm=np.ascontiguousarray(qm_a[:rpad]),
+                     sm=np.ascontiguousarray(sm_a[:rpad]), num_rec=num_rec,
+                     tok_meta=tok_meta, tag_len=len(tstream)),
+                read_len, rpad, pcs)
+
+    def semi_hint_seeds(self, block: np.ndarray
+                        ) -> Tuple[int, Optional[tuple]]:
+        """What `block` would seed, as compress would, were it the first
+        semi block of its file: (the lane bucket, 0 when the block is not
+        semi layout; the plane counts, None when its titles are not title
+        mode 2).  Seeds nothing."""
+        if not self._uniform_eligible() or stage_uniform_block(
+                block, self.shape.cap, self.device) is not None:
+            return 0, None
+        staged = stage_semi_raw(block)
+        if staged is None:
+            return 0, None
+        _read_len, num_rec, _qm, _sm, tstream, tl = staged
+        rpad = _rpad_bucket(num_rec) + 256          # as _semi_rpad seeds it
+        tok = TAG.analyze_value_fields(np.asarray(tstream, np.uint8),
+                                       np.asarray(tl))
+        if tok is None or tok[0].shape[1] > 16:
+            return rpad, None
+        return rpad, semi_tok_planes(tok[0], num_rec)[1]
+
+    def set_semi_hints(self, rpad: int, pcs: Optional[tuple]) -> None:
+        """Seed the hints with what semi_hint_seeds gave for the blocks
+        that seed them in a one-worker run (the first semi-layout block,
+        the first title mode 2 block), before any block is compressed, so
+        that blocks compressed afterwards in any order and on any process
+        get that run's bytes."""
+        if rpad:
+            self._rpad_hint = rpad
+        if pcs is not None:
+            self._pcs_hint = dict(enumerate(pcs))
+            self._hints_frozen = True
+
     def _compress_semi(self, block: np.ndarray, index: Optional[int]):
         """Fixed read length, variable titles.  None = not semi-layout.
         Titles whose fields are all constant or numeric (at most 16
@@ -644,28 +754,14 @@ class BlockCodec:
         return to_numpy(mat[:num_rec]).reshape(-1)
 
     def _decompress_semi(self, r: BitReader) -> np.ndarray:
-        from ..convert import comp_from_numpy
-        d = parse_semi_block(r, self.shape.cap, self.device)
-        num_rec, read_len, rpad = d["num_rec"], d["read_len"], d["rpad"]
-        comp = comp_from_numpy(
-            {k: d[k] for k in ("num_rec", "qual_mode", "title", "qual", "dna")
-             if k in d}, self.device)
-        if d["mode"] == 0:
-            titles_np, title_len_np = d["titles_np"], d["title_len_np"]
-            qual_m, seq_m = UP.decompress_semi(comp, read_len, rpad,
-                                               left=True, wire=d["wire"])
-        else:
-            vmat, qual_m, seq_m = UP.decompress_semi_tok(
-                comp, torch.from_numpy(d["v0"]).to(self.device), d["pcs"],
-                read_len, rpad, left=True, wire=d["wire"])
-            titles_np, title_len_np = TAG.render_value_titles(
-                to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
-        return native.layout_records(
-            num_rec, titles_np, title_len_np,
-            to_numpy(seq_m[:num_rec]).reshape(-1),
-            to_numpy(qual_m[:num_rec]).reshape(-1),
-            np.full(num_rec, read_len, np.int64), None,
-            self.dataset.color_space, self.dataset.plus_repetition)
+        return self.decompress_parsed_semi(
+            parse_semi_block(r, self.shape.cap, self.device))
+
+    def decompress_parsed_semi(self, d: dict) -> np.ndarray:
+        """A semi block already parsed by parse_semi_block, decoded on the
+        codec's device (a mode-0 block's titles are not decoded again)."""
+        return decode_parsed_semi(d, self.device, self.dataset.color_space,
+                                  self.dataset.plus_repetition)
 
     # -------------------------------------------------- GENERIC class
     def stage_generic(self, block: np.ndarray) -> GenericStreams:

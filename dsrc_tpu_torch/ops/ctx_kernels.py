@@ -221,15 +221,18 @@ def ctx_decode_band(payload: torch.Tensor, x: torch.Tensor,
     lags = sum(c << (8 * k) for k, c in enumerate(mode.lags))
     threads, entries = row_layout(nsym)
     rows = rows_packed(cum, threads * entries) if route == "global" else None
-    rc = _entry("dsrc_ctx_decode")(
-        payload.data_ptr(), payload.shape[1], x.data_ptr(), wptr.data_ptr(),
-        carry.data_ptr(), lengths.data_ptr(), cum.data_ptr(),
-        None if rows is None else rows.data_ptr(), nctx, nsym,
-        aux.data_ptr() if mode.uses_aux else None, t0, t1, t_steps, lanes,
-        mode.kind, mode.sbits, mode.cmask, mode.hb,
-        mode.sbits if mode.kind == MODE_QUALITY else 0, len(mode.lags),
-        lags, threads, entries, ROUTES.index(route), osym.data_ptr(),
-        octx.data_ptr(), dev.index or 0, _stream(dev))
+    # under torch.cuda.device(dev), which gives the calling thread back its
+    # current device (ops/rans_kernels.py)
+    with torch.cuda.device(dev):
+        rc = _entry("dsrc_ctx_decode")(
+            payload.data_ptr(), payload.shape[1], x.data_ptr(),
+            wptr.data_ptr(), carry.data_ptr(), lengths.data_ptr(),
+            cum.data_ptr(), None if rows is None else rows.data_ptr(), nctx,
+            nsym, aux.data_ptr() if mode.uses_aux else None, t0, t1,
+            t_steps, lanes, mode.kind, mode.sbits, mode.cmask, mode.hb,
+            mode.sbits if mode.kind == MODE_QUALITY else 0, len(mode.lags),
+            lags, threads, entries, ROUTES.index(route), osym.data_ptr(),
+            octx.data_ptr(), dev.index or 0, _stream(dev))
     if rc != 0:
         raise DsrcException(f"ctx_decode kernel launch failed: CUDA error "
                             f"{rc}")

@@ -13,6 +13,13 @@ the card, and what the CPU tests run.
 Every launch adds one to its kernel's count in LAUNCHES (thread-safe: the
 whole-file pipeline runs worker threads), so a run can show that its main
 path went through the kernels.
+
+A kernel runs on the card of its tensors, on that card's current stream.
+Each launch is made under torch.cuda.device(dev), which gives the calling
+thread back its current CUDA device afterwards (the C entry point sets
+`dev` and does not restore it): the mesh path launches on several cards
+from one thread, and later work that names no card index must not land on
+the last card used.
 """
 from __future__ import annotations
 
@@ -201,10 +208,11 @@ def rans_encode_from_freqs(freq: torch.Tensor, cum: torch.Tensor,
     states = torch.empty(lanes, dtype=torch.int32, device=dev)
     if lanes == 0:
         return payload, nwords, states
-    rc = _entry("dsrc_rans_encode")(
-        freq.data_ptr(), cum.data_ptr(), active.data_ptr(), t_steps, lanes,
-        wp, payload.data_ptr(), nwords.data_ptr(), states.data_ptr(),
-        dev.index or 0, _stream(dev))
+    with torch.cuda.device(dev):        # restores the thread's device
+        rc = _entry("dsrc_rans_encode")(
+            freq.data_ptr(), cum.data_ptr(), active.data_ptr(), t_steps,
+            lanes, wp, payload.data_ptr(), nwords.data_ptr(),
+            states.data_ptr(), dev.index or 0, _stream(dev))
     if rc != 0:
         raise DsrcException(f"rans_encode kernel launch failed: CUDA error "
                             f"{rc}")
@@ -334,11 +342,12 @@ def rans_decode(payload: torch.Tensor, states: torch.Tensor,
     if lanes == 0 or p == 0:
         return out
     ne, stride, tile_rows = dec_layout(nsym, p)
-    rc = _entry("dsrc_rans_decode")(
-        payload.data_ptr(), payload.shape[1], states.data_ptr(),
-        wptr.data_ptr(), cum.data_ptr(), p, nsym, ne, stride, tile_rows,
-        group, lanes, max(0, min(int(num_rec), lanes * group)),
-        out.data_ptr(), dev.index or 0, _stream(dev))
+    with torch.cuda.device(dev):        # restores the thread's device
+        rc = _entry("dsrc_rans_decode")(
+            payload.data_ptr(), payload.shape[1], states.data_ptr(),
+            wptr.data_ptr(), cum.data_ptr(), p, nsym, ne, stride, tile_rows,
+            group, lanes, max(0, min(int(num_rec), lanes * group)),
+            out.data_ptr(), dev.index or 0, _stream(dev))
     if rc != 0:
         raise DsrcException(f"rans_decode kernel launch failed: CUDA error "
                             f"{rc}")

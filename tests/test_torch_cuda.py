@@ -437,3 +437,109 @@ def test_one_colour_space_block_card_equals_cpu(cuda):
     _card_equals_cpu(cuda, data, InputParameters(
         dna_compression_level=2, quality_compression_level=2,
         fastq_block_size_bytes=1 << 20), ("rans_encode", "ctx_decode"))
+
+
+# --------------------------------------------------------------------------
+# The mesh and launches on more than one card
+# --------------------------------------------------------------------------
+
+def test_mesh_on_one_card_twice_equals_one_device(cuda, monkeypatch):
+    """The mesh over [cuda:0, cuda:0]: dryrun, and a SEMI file through
+    DsrcModule with api.local_device_mesh giving that list, in batches of
+    two blocks, each on its own host thread: the one-device archive,
+    decoded byte-exactly, through K1 and K2."""
+    from dsrc_tpu_torch import api as TAPI
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.parallel import mesh as TM
+    from dsrc_tpu_torch.utils.synth import make_fastq_fast
+    devices = [cuda, cuda]
+    TM.dryrun(devices)
+    data = make_fastq_fast(16000, 60, seed=5, fixed_width=False)
+    mod = DsrcModule(InputParameters(fastq_block_size_bytes=1 << 18),
+                     device=cuda)
+    one = io.BytesIO()
+    mod.compress(io.BytesIO(data), one)
+    batches = []
+    real = TM.MeshSemiCodec.compress_blocks
+    monkeypatch.setattr(TM.MeshSemiCodec, "compress_blocks",
+                        lambda self, *a: batches.append(1) or real(self, *a))
+    monkeypatch.setattr(TAPI, "local_device_mesh", lambda device: devices)
+    RK.reset_launch_counts()
+    arch, out = io.BytesIO(), io.BytesIO()
+    mod.compress(io.BytesIO(data), arch)
+    assert arch.getvalue() == one.getvalue()
+    assert batches
+    arch.seek(0)
+    mod.decompress(arch, out)
+    assert out.getvalue() == data
+    counts = RK.launch_counts()
+    assert counts["rans_encode"] > 0 and counts["rans_decode"] > 0
+    assert torch.cuda.current_device() == 0
+
+
+def test_launches_on_a_second_card_keep_the_thread_device():
+    """K1, K2 and K3 launched on cuda:1 from a worker thread whose current
+    device is cuda:0 equal their plain versions, and the thread's current
+    device is still cuda:0 afterwards."""
+    import threading
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from dsrc_tpu_torch.ops import ctx_kernels as CK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    from dsrc_tpu_torch.parallel import uniform_pipeline as UP
+    card1 = torch.device("cuda", 1)
+    result = {}
+
+    def work():
+        torch.cuda.set_device(0)
+        rng = np.random.default_rng(7)
+        mat = torch.from_numpy(np.minimum(rng.geometric(0.1, (1024, 13)) - 1,
+                                          63).astype(np.int32))
+        freq, cum, active, table = UP.positional_models(mat, 1000, 64, 8)
+        enc = RK.rans_encode_from_freqs(freq.to(card1), cum.to(card1),
+                                        active.to(card1))
+        plain = RK.rans_encode_plain(freq, cum, active)
+        result["k1"] = all(torch.equal(a.cpu(), b)
+                           for a, b in zip(enc, plain))
+        after_k1 = torch.cuda.current_device()
+        wptr = UP.start_words(enc[0], enc[1], False)
+        cumrow = cum_from_freqs(table).contiguous()
+        args = (enc[0], enc[2], wptr, cumrow.to(card1), 1000, 8)
+        dec = RK.rans_decode(*args)
+        result["k2"] = torch.equal(dec.cpu(), RK.rans_decode_plain(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+        after_k2 = torch.cuda.current_device()
+        pl, st, lengths, num_ctx, mode, aux, edges, _, _ = _ctx_case(
+            card1, 0, 33, 40, 16, 8)
+        cum3 = cum_from_freqs(torch.from_numpy(rng.integers(
+            1, 50, (num_ctx, 16)).astype(np.int32))).to(card1).contiguous()
+        state = [st.clone(), torch.zeros(33, dtype=torch.int32, device=card1),
+                 torch.zeros(33, dtype=torch.int32, device=card1),
+                 torch.zeros((33, 40), dtype=torch.int32, device=card1),
+                 torch.zeros((33, 40), dtype=torch.int32, device=card1)]
+        ref = [v.cpu() for v in state]
+        CK.ctx_decode_band(pl, *state[:3], lengths, cum3, aux, *state[3:],
+                           0, edges[1], mode)
+        CK.ctx_decode_band_plain(pl.cpu(), *ref[:3], lengths.cpu(),
+                                 cum3.cpu(), aux, *ref[3:], 0, edges[1],
+                                 mode)
+        result["k3"] = all(torch.equal(a.cpu(), b)
+                           for a, b in zip(state, ref))
+        result["devices"] = (after_k1, after_k2, torch.cuda.current_device())
+
+    def run():
+        try:
+            work()
+        except BaseException as e:     # noqa: BLE001 — raised below
+            result["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in result:
+        raise result["error"]
+    assert result["k1"] and result["k2"] and result["k3"]
+    assert result["devices"] == (0, 0, 0)

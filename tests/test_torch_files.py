@@ -2,8 +2,8 @@
 decode byte-exactly, archives cross-decode between the port and dsrc_tpu in
 both directions, the CLI round-trips and extracts record ranges (-r),
 colour-space (SOLiD) input and free-text titles (SEMI title mode 0) go
-through, and what the port does not cover yet (distributed) raises
-DsrcException instead of writing other bytes."""
+through, and distributed compression of streams (it needs file paths)
+raises DsrcException instead of writing other bytes."""
 import io
 import os
 

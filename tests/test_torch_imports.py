@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing dsrc_tpu_torch, every one of its
-modules (the record API dsrc_tpu_torch.archive_api and the examples
-among them), chip_smoke.py, k1_variants.py and k3_variants.py loads
+modules (the record API dsrc_tpu_torch.archive_api, the examples and the
+multi-device modules parallel/mesh.py and parallel/distributed.py among
+them), chip_smoke.py, k1_variants.py and k3_variants.py loads
 neither JAX nor anything of dsrc_tpu.
 
 Checked in a subprocess, because this test process has JAX loaded already
@@ -44,6 +45,26 @@ def test_port_imports_no_jax_and_nothing_of_dsrc_tpu():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["LOADED"]) >= 20
     assert lines["BAD"] == "[]"
+
+
+def test_mesh_and_distributed_modules_load_no_jax():
+    """The multi-device modules on their own: parallel/mesh.py and
+    parallel/distributed.py (and api.py, which imports the mesh)."""
+    probe = ("import sys\n"
+             "import dsrc_tpu_torch.parallel.mesh\n"
+             "import dsrc_tpu_torch.parallel.distributed\n"
+             "from dsrc_tpu_torch.parallel.distributed import "
+             "compress_distributed\n"
+             "from dsrc_tpu_torch.api import _mesh_compress_results\n"
+             "print(sorted(n for n in sys.modules\n"
+             "             if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'dsrc_tpu')))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
