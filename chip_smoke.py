@@ -64,19 +64,27 @@ script exits non-zero without printing a result:
              equal to the single-process card archive and decompressed on
              the card to the input; with two or more cards, the SEMI file
              under NCCL, one process a card
- 12 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
+ 12 m2       the -m2 preset (-d3 -q2, 256 MB blocks) at its real size: a
+             640 MB realistic file (two full 256 MB blocks, then the
+             128 MB -m1 file as a short block; blocks 1 and 2 on the card
+             at once) through CLI `c -m2` and `d` on files under
+             build/chip_smoke/, byte-exact, K1 and K3 launched, the
+             device's peak memory of each; block 0 of the card's archive
+             equal to the port's CPU bytes for its text
+ 13 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
              decode byte-exactly on the card, and compressing their inputs
              on the card writes the golden archives' exact bytes
- 13 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
+ 14 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
              block's round trip again under torch.profiler: the device's
              busy share of the wall time, its time by kernel, each
              kernel's device time and the launch counts
 
-Phases 4-11 are the main paths: each run sets the launch counts to 0,
+Phases 4-12 are the main paths: each run sets the launch counts to 0,
 drives the path and reads the counts, and fails when a kernel of that path
 was not launched (a distributed child counts its own launches and prints
-them).  The lines before the last are the nvidia-smi line and
-the kernels line; the last line is {"ok": true, "device": {...}}.  Needs
+them).  The lines before the last are the script's seconds, the
+nvidia-smi line and the kernels line; the last line is {"ok": true,
+"device": {...}}.  Needs
 one CUDA card and nvcc; exits non-zero without one.
 """
 from __future__ import annotations
@@ -1543,6 +1551,155 @@ def distributed_phase(device, semi: bytes, semi_archive: bytes, big: bytes,
     return out
 
 
+# --------------------------------------------------------------------------
+# -m2 at its real block size, through the CLI on files
+# --------------------------------------------------------------------------
+
+def m2_input(big: bytes) -> bytes:
+    """A realistic file of two full 256 MB blocks and the 128 MB -m1 file
+    after them (a short block, padded to the full capacity).  Block 0 runs
+    on the calling thread, then blocks 1 and 2 are on the card at once,
+    one on each of DsrcModule's two workers."""
+    return (realistic_of_size(256 * MB, seed=97)
+            + realistic_of_size(256 * MB, seed=98) + big)
+
+
+class cli_modules:
+    """Inside a with block, the CLI builds its DsrcModule from a subclass
+    that keeps each module it makes (`as mods`) and what its compress
+    returned (`.info`)."""
+
+    def __enter__(self):
+        from dsrc_tpu_torch import api as A
+        real = self.real = A.DsrcModule
+        mods = []
+
+        class Kept(real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                mods.append(self)
+
+            def compress(self, *a, **k):
+                self.info = super().compress(*a, **k)
+                return self.info
+        A.DsrcModule = Kept
+        return mods
+
+    def __exit__(self, *exc):
+        from dsrc_tpu_torch import api as A
+        A.DsrcModule = self.real
+
+
+def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
+    """data through the CLI on files under build/chip_smoke/:
+    `c <opts> in out`, then `d out back`, with the launch counts set to 0
+    just before and read just after, and the device's peak memory of each
+    (max_memory_allocated after reset_peak_memory_stats).  The decoded file
+    must equal the input; the archive is returned for inspection and the
+    files are removed."""
+    import torch
+    from dsrc_tpu_torch import cli
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    tmp = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    src, arc, back = (os.path.join(tmp, name + ext)
+                      for ext in (".fastq", ".xfqz", ".back.fastq"))
+    with open(src, "wb") as f:
+        f.write(data)
+    torch.cuda.init()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    try:
+        RK.reset_launch_counts()
+        secs, peaks, rcs = [], [], []
+        with cli_modules() as mods:
+            for argv in (["c", *opts, src, arc], ["d", arc, back]):
+                torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                rcs.append(cli.main(argv, device=device))
+                torch.cuda.synchronize(device)
+                secs.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated(device))
+        launches = RK.launch_counts()
+        if rcs != [0, 0]:
+            raise AssertionError(f"{name}: the CLI exited {rcs}")
+        with open(back, "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"{name}: the CLI round trip is not "
+                                     f"byte-exact")
+        with open(arc, "rb") as f:
+            archive = f.read()
+    finally:
+        for path in (src, arc, back):
+            if os.path.exists(path):
+                os.remove(path)
+    mb = len(data) / MB
+    return {"path": name, "cli": " ".join(opts), "input_bytes": len(data),
+            "archive_bytes": len(archive),
+            "ratio": len(data) / len(archive),
+            "compress_s": secs[0], "decompress_s": secs[1],
+            "compress_MBps": mb / secs[0], "decompress_MBps": mb / secs[1],
+            "device_bytes_before": base,
+            "peak_device_bytes_compress": peaks[0],
+            "peak_device_bytes_decompress": peaks[1],
+            # host-clock seconds per stage, summed over the worker threads
+            "compress_stage_s": dict(mods[0].last_stage_times.seconds),
+            "decompress_stage_s": dict(mods[1].last_stage_times.seconds),
+            "schemes": mods[0].info.schemes, "launches": launches,
+            "archive": archive}
+
+
+def m2_phase(device, data: bytes, m1=None) -> dict:
+    """The -m2 preset at its real size: data (m2_input) through CLI
+    `c -m2` and `d` on files (cli_round_trip), in at least three blocks
+    (two in flight after block 0), the first a full one; K1 and K3
+    launched; the card's block 0 equal to what
+    DsrcModule(InputParameters.preset(2), device="cpu") writes for block
+    0's text.  Each block's ratio is given, and m1 = (text, ratio of its
+    -m1 archive) names the block whose text that is."""
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    from dsrc_tpu_torch.io.chunker import FastqChunker
+    res = cli_round_trip(device, "m2", data, ["-m2"])
+    archive = res.pop("archive")
+    for k in ("rans_encode", "ctx_decode"):
+        if res["launches"][k] == 0:
+            raise AssertionError(f"m2: kernel {k} was not launched on the "
+                                 f"-m2 path")
+    params = InputParameters.preset(2)
+    block_bytes = params.fastq_block_size_mb << 20
+    card = ArchiveReader(io.BytesIO(archive))
+    texts = list(FastqChunker(io.BytesIO(data), block_bytes))
+    block0 = texts[0]
+    res["block_ratios"] = [len(t) / n for t, n in zip(texts,
+                                                      card.block_sizes)]
+    if m1 is not None:
+        res["m1_ratio_of_block"] = {
+            i: m1[1] for i, t in enumerate(texts)
+            if len(t) == len(m1[0]) and t.tobytes() == m1[0]}
+    del texts
+    if card.num_blocks < 3 or len(block0) < block_bytes - 1024:
+        raise AssertionError(f"m2: {card.num_blocks} blocks, block 0 of "
+                             f"{len(block0)} bytes: not a full block and "
+                             f"two more")
+    t0 = time.perf_counter()
+    cpu = io.BytesIO()
+    DsrcModule(params, device="cpu").compress(io.BytesIO(block0.tobytes()),
+                                              cpu)
+    cpu_s = time.perf_counter() - t0
+    if ArchiveReader(io.BytesIO(cpu.getvalue())).read_block(0) != \
+            card.read_block(0):
+        raise AssertionError("m2: block 0 of the card's archive differs "
+                             "from the port's CPU bytes")
+    res.update(phase="m2", nvidia_smi=card_info(), blocks=card.num_blocks,
+               block_bytes=block_bytes, block0_bytes=len(block0),
+               block_records=card.block_records,
+               block0_equals_cpu=True, cpu_block0_compress_s=cpu_s)
+    emit(res)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1550,6 +1707,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     from dsrc_tpu_torch.ops import cuda_build
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = card_info()
@@ -1585,9 +1743,10 @@ def main() -> int:
     k3_plain = k3_plain_ms(recs64["quality"])
     recs256 = ctx_checks(device, m2_streams(device), "256MB_m2", timed=True,
                          check_plain=False)
-    m2_lines = {k: {f: r[f] for f in ("route", "k1_device_ms",
-                                     "k3_device_ms", "k3_chain_floor_ms")}
-                for k, r in recs256.items()}
+    m2_lines = {k: {f: r[f] for f in (
+        "route", "k1_device_ms", "k1_bound_ms", "k1_bound_by",
+        "k3_device_ms", "k3_stream_bound_ms", "k3_stream_bound_by",
+        "k3_chain_floor_ms")} for k, r in recs256.items()}
     del recs256
     torch.cuda.empty_cache()
     records["rans_encode"]["max_abs_err"] = max(
@@ -1615,8 +1774,9 @@ def main() -> int:
     dist_runs = distributed_phase(device, semi, semi_archive, big,
                                   big_archive)["runs"]
     del big_archive, semi_archive, umi_archive, umi
+    m2 = m2_phase(device, m2_input(big), m1=(big, runs[0]["ratio"]))
     for r in ([res, res_u] + runs + mode0_runs + colour_runs + [rec_api]
-              + mesh["runs"] + dist_runs + [mesh.get("all_cards")]):
+              + mesh["runs"] + dist_runs + [mesh.get("all_cards"), m2]):
         for k, n in (r or {"launches": {}})["launches"].items():
             launches[k] += n
     for k, n in rec_api["range_launches"].items():
@@ -1669,6 +1829,7 @@ def main() -> int:
     kernels[2].update(table_routes=records["ctx_decode"]["route"],
                       chain_floor_ms=records["ctx_decode"]["chain_floor_ms"],
                       m2_shapes=records["ctx_decode"]["m2_shapes"])
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

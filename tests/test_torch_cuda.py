@@ -428,6 +428,22 @@ def test_one_mode0_semi_block_card_equals_cpu(cuda):
     assert ArchiveReader(io.BytesIO(arch)).read_block(0)[0] == 2  # SEMI
 
 
+def test_one_64mb_block_at_m2_settings_card_equals_cpu(cuda):
+    """One 62 MB block at the -m2 settings (-d3 -q2, a 64 MB block size):
+    byte-exact on the card through K1 and K3, and the port's CPU
+    archive.  chip_smoke.py's `m2` phase runs the 256 MB blocks."""
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.io.archive import ArchiveReader
+    from dsrc_tpu_torch.utils.synth import make_fastq_realistic
+    data = make_fastq_realistic(250_000, 100, seed=98)
+    params = InputParameters.preset(2)
+    params.fastq_block_size_bytes = 64 << 20
+    assert (60 << 20) < len(data) < (64 << 20)
+    arch = _card_equals_cpu(cuda, data, params,
+                            ("rans_encode", "ctx_decode"))
+    assert ArchiveReader(io.BytesIO(arch)).num_blocks == 1
+
+
 def test_one_colour_space_block_card_equals_cpu(cuda):
     """SOLiD reads ('.' present) at -d2 -q2: K1 and K3 on the colour
     stream."""
