@@ -71,15 +71,23 @@ script exits non-zero without printing a result:
              build/chip_smoke/, byte-exact, K1 and K3 launched, the
              device's peak memory of each; block 0 of the card's archive
              equal to the port's CPU bytes for its text
- 13 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
+ 13 b1024    the largest block size the CLI accepts, -b1024 -d2 -q2
+             (capacity 1,073,758,208), on the m2 phase's records repeated:
+             one 1 GB block through BlockCodec, each stage's peak device
+             memory (allocated and reserved) per byte of capacity,
+             allocated at most 24; then CLI `c -b1024 -d2 -q2` and `d` on
+             a 2.1 GB file (two full blocks and 100 MB), byte-exact, with
+             blocks 1 and 2 on the card at once (their compress spans
+             overlap)
+ 14 golden   tests/data's golden archives (UNIFORM, SEMI, GENERIC, lossy)
              decode byte-exactly on the card, and compressing their inputs
              on the card writes the golden archives' exact bytes
- 14 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
+ 15 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
              block's round trip again under torch.profiler: the device's
              busy share of the wall time, its time by kernel, each
              kernel's device time and the launch counts
 
-Phases 4-12 are the main paths: each run sets the launch counts to 0,
+Phases 4-13 are the main paths: each run sets the launch counts to 0,
 drives the path and reads the counts, and fails when a kernel of that path
 was not launched (a distributed child counts its own launches and prints
 them).  The lines before the last are the script's seconds, the
@@ -90,10 +98,12 @@ one CUDA card and nvcc; exits non-zero without one.
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -464,8 +474,7 @@ def ctx_streams(device, block: bytes, params):
 
     # quality, CTX scheme at order 2
     n = g.q_total
-    hist = Q.quality_stats(g.qvals, n, g.parsed.qual_len, g.num_rec, -1,
-                           cap, shape.rcap)[0].cpu().numpy()
+    hist = Q.quality_hist(g.qvals, n).cpu().numpy()
     present = np.flatnonzero(hist)
     a_pad = Q._a_pad(len(present))
     lut = np.zeros(256, np.int32)
@@ -473,7 +482,7 @@ def ctx_streams(device, block: bytes, params):
     dense = torch.from_numpy(lut).to(device)[g.qvals.to(torch.int64)]
     nc, lanes_n, edges = Q._geom(cap, n)
     num_ctx, mode, reset, bucket = Q.ctxq_model(
-        g.parsed.qual_len, nc, settings.quality_order, a_pad, lanes_n,
+        g.qual_len_d, nc, settings.quality_order, a_pad, lanes_n,
         Q._pow2ceil(n))
     add("quality", mode, num_ctx, a_pad, edges, dense[:nc], n,
         aux=(reset, bucket), lanes_n=lanes_n)
@@ -490,13 +499,12 @@ def ctx_streams(device, block: bytes, params):
         1 << (4 * order), 16, C.band_edges(ncp // lanes_p), pairs[:ncp],
         npairs, ctx=(order, 4), lanes_n=lanes_p)
     # titles as one free-text field: contexts min(position, 15)
-    tl = g.parsed.title_len[:g.num_rec].cpu().numpy()
     n = g.t_total
     nc = C.stream_cap(cap, n)
     lanes_n = C.pick_num_lanes(nc)
-    text = torch.nn.functional.pad(g.titles[:n].to(torch.int64),
-                                   (0, nc - n))
-    tctx = torch.from_numpy(np.pad(TAG._text_ctx({0: tl}, [0]),
+    text = torch.from_numpy(np.pad(g.titles[:n].astype(np.int64),
+                                   (0, nc - n))).to(device)
+    tctx = torch.from_numpy(np.pad(TAG._text_ctx({0: g.title_len}, [0]),
                                    (0, nc - n))).to(device)
     add("tag_text", CK.CtxMode(CK.MODE_PRECOMPUTED), TAG.TEXT_NUM_CTX, 256,
         C.band_edges(nc // lanes_n), text, n, ctx=tctx, lanes_n=lanes_n)
@@ -1096,7 +1104,6 @@ def colour_dna_stream(device, block: bytes, params):
     codes it at these settings: CTX8P (colour pairs, 64 symbols) or CTX8
     (8 symbols), for ctx_checks."""
     import numpy as np
-    import torch
     from dsrc_tpu_torch.api import analyze_first_block
     from dsrc_tpu_torch.models import block as B
     from dsrc_tpu_torch.models import dna as DNA
@@ -1113,7 +1120,7 @@ def colour_dna_stream(device, block: bytes, params):
     nz = np.flatnonzero(DNA.dna_stats(g.dna, n, cap).cpu().numpy()[:19])
     if len(nz) != 5:
         raise AssertionError(f"colour symbols {nz.tolist()}, not 0123.")
-    dense = DNA._dense_lut(nz, device)[torch.clamp(g.dna, max=18)]
+    dense = DNA._dense(g.dna, nz)
     npairs = (n + 1) // 2
     if settings.dna_order >= 4 and n >= (1 << 16):
         ncp = C.stream_cap(cap // 2, npairs)
@@ -1590,13 +1597,47 @@ class cli_modules:
         A.DsrcModule = self.real
 
 
+class codec_intervals:
+    """Inside a with block, every BlockCodec.compress and decompress call
+    appends (op, block number, start, end) on the host clock to the list
+    the block gives (`as spans`); decompress calls are numbered in the
+    order they start.  Blocks whose spans overlap were on the card at
+    once."""
+
+    def __enter__(self):
+        from dsrc_tpu_torch.models import block as B
+        self.real = (B.BlockCodec.compress, B.BlockCodec.decompress)
+        spans, started, lock = [], itertools.count(), threading.Lock()
+
+        def timed(fn):
+            def run(codec, arg, *rest):
+                k = (rest[0] if rest else None) if fn is self.real[0] \
+                    else next(started)
+                t0 = time.perf_counter()
+                try:
+                    return fn(codec, arg, *rest)
+                finally:
+                    with lock:
+                        spans.append((fn.__name__, k, t0,
+                                      time.perf_counter()))
+            return run
+        B.BlockCodec.compress, B.BlockCodec.decompress = map(timed,
+                                                             self.real)
+        return spans
+
+    def __exit__(self, *exc):
+        from dsrc_tpu_torch.models import block as B
+        B.BlockCodec.compress, B.BlockCodec.decompress = self.real
+
+
 def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
     """data through the CLI on files under build/chip_smoke/:
     `c <opts> in out`, then `d out back`, with the launch counts set to 0
     just before and read just after, and the device's peak memory of each
-    (max_memory_allocated after reset_peak_memory_stats).  The decoded file
-    must equal the input; the archive is returned for inspection and the
-    files are removed."""
+    (max_memory_allocated and max_memory_reserved after
+    reset_peak_memory_stats), and each block codec call's span
+    (codec_intervals).  The decoded file must equal the input; the archive
+    is returned for inspection and the files are removed."""
     import torch
     from dsrc_tpu_torch import cli
     from dsrc_tpu_torch.ops import rans_kernels as RK
@@ -1611,8 +1652,9 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
     base = torch.cuda.memory_allocated(device)
     try:
         RK.reset_launch_counts()
-        secs, peaks, rcs = [], [], []
-        with cli_modules() as mods:
+        secs, peaks, reserved, rcs = [], [], [], []
+        with cli_modules() as mods, codec_intervals() as spans:
+            t_run = time.perf_counter()
             for argv in (["c", *opts, src, arc], ["d", arc, back]):
                 torch.cuda.reset_peak_memory_stats(device)
                 t0 = time.perf_counter()
@@ -1620,6 +1662,7 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
                 torch.cuda.synchronize(device)
                 secs.append(time.perf_counter() - t0)
                 peaks.append(torch.cuda.max_memory_allocated(device))
+                reserved.append(torch.cuda.max_memory_reserved(device))
         launches = RK.launch_counts()
         if rcs != [0, 0]:
             raise AssertionError(f"{name}: the CLI exited {rcs}")
@@ -1642,6 +1685,12 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
             "device_bytes_before": base,
             "peak_device_bytes_compress": peaks[0],
             "peak_device_bytes_decompress": peaks[1],
+            "peak_reserved_bytes_compress": reserved[0],
+            "peak_reserved_bytes_decompress": reserved[1],
+            # seconds from the start of the compress, per block codec call
+            "codec_spans": [(op, k, round(a - t_run, 3), round(b - t_run, 3))
+                            for op, k, a, b in sorted(spans,
+                                                      key=lambda x: x[2])],
             # host-clock seconds per stage, summed over the worker threads
             "compress_stage_s": dict(mods[0].last_stage_times.seconds),
             "decompress_stage_s": dict(mods[1].last_stage_times.seconds),
@@ -1697,6 +1746,134 @@ def m2_phase(device, data: bytes, m1=None) -> dict:
                block_records=card.block_records,
                block0_equals_cpu=True, cpu_block0_compress_s=cpu_s)
     emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------
+# -b1024: GENERIC blocks of the largest capacity the CLI accepts
+# --------------------------------------------------------------------------
+
+B1024_MB = 1024
+B1024_BYTES_PER_CAP = 24     # two blocks in flight inside the card's 80 GB
+
+
+def repeated_records(data: bytes, nbytes: int) -> bytes:
+    """data repeated and cut at the last whole record within nbytes (made
+    from the m2 phase's realistic records: fast, where making 2 GB of new
+    records would take minutes)."""
+    return cut_records(data * -(-nbytes // len(data)), nbytes)
+
+
+def b1024_block(device, block: bytes) -> dict:
+    """One GENERIC -d2 -q2 block of the -b1024 capacity through
+    analyze_first_block and BlockCodec on the card: each stage's peak
+    device memory (max_memory_allocated and max_memory_reserved after
+    reset_peak_memory_stats, less what earlier phases left allocated
+    and reserved), per byte of capacity; the decoded block equal to the
+    input, K1 and K3 launched."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.api import analyze_first_block
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.models.block import BlockCodec, BlockShape
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    params = InputParameters(dna_compression_level=2,
+                             quality_compression_level=2,
+                             fastq_block_size_mb=B1024_MB)
+    shape = BlockShape.for_block_size(B1024_MB << 20)
+    arr = np.frombuffer(block, np.uint8)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    base_reserved = torch.cuda.memory_reserved(device)
+    out = {"phase": "b1024", "path": "one_block", "cli": "-b1024 -d2 -q2",
+           "capacity": shape.cap, "block_bytes": len(block),
+           "device_bytes_before": base, "reserved_bytes_before": base_reserved}
+
+    def stage(name, fn):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        alloc = torch.cuda.max_memory_allocated(device) - base
+        res_b = torch.cuda.max_memory_reserved(device) - base_reserved
+        out.update({f"{name}_s": time.perf_counter() - t0,
+                    f"{name}_peak_allocated_bytes": alloc,
+                    f"{name}_peak_reserved_bytes": res_b,
+                    f"{name}_allocated_per_cap": alloc / shape.cap,
+                    f"{name}_reserved_per_cap": res_b / shape.cap})
+        return res
+
+    RK.reset_launch_counts()
+    ds = stage("analyze", lambda: analyze_first_block(arr, shape,
+                                                      device=device))
+    codec = BlockCodec(shape, params.to_settings(), ds, device)
+    blob, info = stage("compress", lambda: codec.compress(arr))
+    text = stage("decompress", lambda: codec.decompress(blob))
+    out["launches"] = RK.launch_counts()
+    if text.tobytes() != block:
+        raise AssertionError("b1024: the block's round trip is not "
+                             "byte-exact")
+    for k in ("rans_encode", "ctx_decode"):
+        if out["launches"][k] == 0:
+            raise AssertionError(f"b1024: kernel {k} was not launched")
+    out.update(archive_bytes=len(blob), ratio=len(block) / len(blob),
+               schemes=info.schemes,
+               compress_MBps=len(block) / MB / out["compress_s"],
+               decompress_MBps=len(block) / MB / out["decompress_s"])
+    return out
+
+
+def b1024_input(m2_data: bytes):
+    """(one full -b1024 block, a file of two full -b1024 blocks and a
+    100 MB third), from the m2 phase's records."""
+    return (repeated_records(m2_data, B1024_MB << 20),
+            repeated_records(m2_data, 2 * (B1024_MB << 20) + 100 * MB))
+
+
+def b1024_phase(device, m2_data: bytes) -> dict:
+    """The largest block size the CLI accepts (-b1024, capacity
+    1,073,758,208 bytes) at -d2 -q2: one block alone (b1024_block), then
+    CLI `c -b1024 -d2 -q2` and `d` on a file of two full 1 GB blocks and a
+    short third (cli_round_trip): byte-exact, K1 and K3 launched, the
+    peaks, and blocks 1 and 2 on the card at once (their compress spans
+    overlap: block 0 runs on the calling thread, then the two workers).
+    Returns the CLI run's line, with the block's line under "one_block"."""
+    block, data = b1024_input(m2_data)
+    one = b1024_block(device, block)
+    del block
+    one["nvidia_smi"] = card_info()
+    emit(one)
+    for name in ("analyze", "compress", "decompress"):
+        if one[f"{name}_allocated_per_cap"] > B1024_BYTES_PER_CAP:
+            raise AssertionError(
+                f"b1024: {name} peaked at "
+                f"{one[f'{name}_allocated_per_cap']:.2f} bytes of device "
+                f"memory a byte of capacity, over {B1024_BYTES_PER_CAP}")
+    res = cli_round_trip(device, "b1024", data, ["-b1024", "-d2", "-q2"])
+    del res["archive"], data
+    for k in ("rans_encode", "ctx_decode"):
+        if res["launches"][k] == 0:
+            raise AssertionError(f"b1024: kernel {k} was not launched on "
+                                 f"the CLI path")
+    spans = {k: (a, b) for op, k, a, b in res["codec_spans"]
+             if op == "compress"}
+    if len(spans) < 3:
+        raise AssertionError(f"b1024: {len(spans)} blocks, not 3")
+    overlap = min(spans[1][1], spans[2][1]) - max(spans[1][0], spans[2][0])
+    if overlap <= 0:
+        raise AssertionError("b1024: blocks 1 and 2 were not compressed at "
+                             "the same time")
+    cap = one["capacity"]
+    res.update(phase="b1024", nvidia_smi=card_info(), capacity=cap,
+               blocks_1_2_overlap_s=overlap,
+               **{f"{k}_per_cap": res[k] / cap for k in (
+                   "peak_device_bytes_compress",
+                   "peak_device_bytes_decompress",
+                   "peak_reserved_bytes_compress",
+                   "peak_reserved_bytes_decompress")})
+    emit(res)
+    res["one_block"] = one
     return res
 
 
@@ -1774,9 +1951,13 @@ def main() -> int:
     dist_runs = distributed_phase(device, semi, semi_archive, big,
                                   big_archive)["runs"]
     del big_archive, semi_archive, umi_archive, umi
-    m2 = m2_phase(device, m2_input(big), m1=(big, runs[0]["ratio"]))
+    m2_data = m2_input(big)
+    m2 = m2_phase(device, m2_data, m1=(big, runs[0]["ratio"]))
+    b1024 = b1024_phase(device, m2_data)
+    del m2_data
     for r in ([res, res_u] + runs + mode0_runs + colour_runs + [rec_api]
-              + mesh["runs"] + dist_runs + [mesh.get("all_cards"), m2]):
+              + mesh["runs"] + dist_runs + [mesh.get("all_cards"), m2,
+                                            b1024, b1024["one_block"]]):
         for k, n in (r or {"launches": {}})["launches"].items():
             launches[k] += n
     for k, n in rec_api["range_launches"].items():

@@ -43,7 +43,9 @@ def analyze_first_block(block: np.ndarray, shape: BlockShape,
     """Dataset-type detection from the first chunk (reference
     FastqReader::AnalyzeFirstChunk, FastqIo.cpp:26-44)."""
     dev = resolve_device(device)
-    data = np.zeros(shape.cap, np.uint8)
+    # the block's own bytes (one zero byte when it is empty): the parse
+    # and the analysis read nothing past them
+    data = np.zeros(max(len(block), 1), np.uint8)
     data[:len(block)] = block
     data = torch.from_numpy(data).to(dev)
     parsed = P.parse_block(data, len(block), shape.rcap)

@@ -61,6 +61,12 @@ class BlockShape:
     cap: int           # max block text bytes (padded)
     rcap: int          # max records per block
 
+    def __post_init__(self):
+        # the GENERIC path keeps stream positions and sums of record
+        # lengths in int32
+        if not 0 < self.cap < 2**31:
+            raise DsrcException(f"block capacity {self.cap} out of range")
+
     @staticmethod
     def for_block_size(block_bytes: int) -> "BlockShape":
         cap = -(-block_bytes // 16384) * 16384 + 16384
@@ -500,24 +506,26 @@ def decode_parsed_semi(d: dict, device, color_space: bool = False,
 
 class GenericStreams(NamedTuple):
     """A GENERIC block parsed and transformed, before its sections are
-    coded: the parse, the gathered title / sequence / quality byte streams
-    (device, [cap]) with their totals, the block's quality offset, the
-    dense DNA symbols left after folding (colour space: the digits after
-    each primer) and the quality values."""
-    parsed: P.ParsedBlock
+    coded.  The raw byte streams are gone by then: the titles are on the
+    host, and the sequence and quality bytes live on only as the CRC32s
+    (when asked for), the dense DNA symbols left after folding (uint8
+    [cap]; colour space: the digits after each primer) and the quality
+    values (int16 [cap])."""
     num_rec: int
-    qual_len: np.ndarray
-    titles: torch.Tensor
+    qual_len: np.ndarray            # int64 [num_rec]
+    qual_len_d: torch.Tensor        # int32 [rcap] on the device
+    title_len: np.ndarray           # [num_rec]
+    titles: np.ndarray              # uint8 [>= t_total], host
     t_total: int
-    seqs: torch.Tensor
     s_total: int
-    quals: torch.Tensor
     q_total: int
     offset: int
     dna: torch.Tensor
     dna_total: int
     qvals: torch.Tensor
     primers: Optional[np.ndarray]   # colour space: each read's primer base
+    crcs: Optional[tuple]           # CRC32 of the title, sequence, quality
+                                    # streams when the settings ask
 
 
 class SeedOrder:
@@ -766,35 +774,43 @@ class BlockCodec:
     # -------------------------------------------------- GENERIC class
     def stage_generic(self, block: np.ndarray) -> GenericStreams:
         """Parse a block on the device and transform its streams (the part
-        of the GENERIC compress before the sections are coded)."""
+        of the GENERIC compress before the sections are coded).  Each
+        device stream is dropped once its last reader has run."""
         sh, st, ds = self.shape, self.settings, self.dataset
         dev = self.device
         nbytes = len(block)
-        data_np = np.zeros(sh.cap, np.uint8)
-        data_np[:nbytes] = block
-        data = torch.from_numpy(data_np).to(dev)
+        block = np.asarray(block, np.uint8)
+        data = torch.from_numpy(block if block.flags.writeable
+                                else block.copy()).to(dev)
         parsed = P.parse_block(data, nbytes, sh.rcap)
         if not bool(parsed.valid):
             raise DsrcException("Error parsing FASTQ block (bad structure)")
         num_rec = int(parsed.num_records)
         seq_len_np = to_numpy(parsed.seq_len)[:num_rec]
-        qual_len_np = to_numpy(parsed.qual_len)[:num_rec]
+        qual_len_np = to_numpy(parsed.qual_len)[:num_rec].astype(np.int64)
         seq_start, seq_len = parsed.seq_start, parsed.seq_len
+        primers = None
         if ds.color_space:
             # a primer base, then one colour digit per quality value
             if not (seq_len_np == qual_len_np + 1).all():
                 raise DsrcException("color-space length mismatch")
+            primers = to_numpy(T.take_clip(data, seq_start))[:num_rec]
             seq_start = seq_start + 1
-            live = torch.arange(sh.rcap, device=dev) < num_rec
-            seq_len = torch.where(live, torch.clamp(seq_len - 1, min=0), 0)
+            seq_len = (seq_len - 1).clamp_(min=0)
         elif not (seq_len_np == qual_len_np).all():
             raise DsrcException("sequence/quality length mismatch")
         titles, t_total, _ = P.gather_stream(data, parsed.title_start,
                                              parsed.title_len, sh.cap)
+        titles = titles[:max(t_total, 1)].to("cpu", copy=True).numpy()
         seqs, s_total, _ = P.gather_stream(data, seq_start, seq_len, sh.cap)
         quals, q_total, _ = P.gather_stream(data, parsed.qual_start,
                                             parsed.qual_len, sh.cap)
-        t_total, s_total, q_total = int(t_total), int(s_total), int(q_total)
+        del data, seq_start, seq_len
+        crcs = None
+        if st.calculate_crc32:
+            # colour space: the sequence stream holds no primer
+            crcs = (crc32(titles[:t_total]), crc32(to_numpy(seqs[:s_total])),
+                    crc32(to_numpy(quals[:q_total])))
 
         # Per-block quality offset: a block with a quality byte below the
         # dataset offset (from the first block) falls back to offset 33 and
@@ -810,24 +826,20 @@ class BlockCodec:
                 raise DsrcException(
                     f"quality bytes span [{qmin}, {qmax}] — outside the "
                     f"reversible range for any FASTQ offset")
-        primers = None
-        if ds.color_space:
-            primers = to_numpy(T.take_clip(
-                data, parsed.seq_start.to(torch.int64)))[:num_rec]
-            dna, dna_total, qvals = _forward_transform_cs(
-                seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
-        else:
-            dna, dna_total, qvals = _forward_transform(
-                seqs, quals, s_total, offset, sh.cap, st.lossy_quality)
-        return GenericStreams(parsed, num_rec, qual_len_np, titles, t_total,
-                              seqs, s_total, quals, q_total, offset, dna,
-                              int(dna_total), qvals, primers)
+        forward = _forward_transform_cs if ds.color_space \
+            else _forward_transform
+        dna, dna_total, qvals = forward(seqs, quals, s_total, offset, sh.cap,
+                                        st.lossy_quality)
+        return GenericStreams(
+            num_rec, qual_len_np, parsed.qual_len,
+            to_numpy(parsed.title_len)[:num_rec], titles, t_total, s_total,
+            q_total, offset, dna, dna_total, qvals, primers, crcs)
 
     def _compress_generic(self, block: np.ndarray
                           ) -> Tuple[bytes, StreamsInfo]:
         sh, st, ds = self.shape, self.settings, self.dataset
         g = self.stage_generic(block)
-        parsed, num_rec, offset = g.parsed, g.num_rec, g.offset
+        num_rec, offset = g.num_rec, g.offset
         dev = self.device
         w = BitWriter()
         w.put_byte(BLOCK_GENERIC)
@@ -840,19 +852,16 @@ class BlockCodec:
         pack_ints(w, g.qual_len)
         if ds.color_space:
             pack_ints(w, g.primers.astype(np.int64))
-        titles_np = to_numpy(g.titles)
-        if st.calculate_crc32:
-            # colour space: the sequence stream holds no primer
-            w.put_uint32(crc32(titles_np[:g.t_total]))
-            w.put_uint32(crc32(to_numpy(g.seqs[:g.s_total])))
-            w.put_uint32(crc32(to_numpy(g.quals[:g.q_total])))
+        if g.crcs is not None:
+            for c in g.crcs:
+                w.put_uint32(c)
         meta_end = w.byte_position
-        TAG.encode_tags(w, titles_np, to_numpy(parsed.title_len)[:num_rec],
-                        st.tag_preserve_mask, sh.cap, dev)
+        TAG.encode_tags(w, g.titles, g.title_len, st.tag_preserve_mask,
+                        sh.cap, dev)
         tag_end = w.byte_position
         hash_val = (HASH_CHAR - offset) if (
             not st.lossy_quality and 0 <= HASH_CHAR - offset < 256) else -1
-        q_scheme = Q.encode_quality(w, g.qvals, g.q_total, parsed.qual_len,
+        q_scheme = Q.encode_quality(w, g.qvals, g.q_total, g.qual_len_d,
                                     num_rec, st.quality_order, hash_val)
         qual_end = w.byte_position
         hist = to_numpy(DNA.dna_stats(g.dna, g.dna_total, sh.cap))
@@ -894,12 +903,11 @@ class BlockCodec:
         dna, _ = DNA.decode_dna(r, sh.cap, st.dna_order, dev)
         backward = _backward_transform_cs if ds.color_space \
             else _backward_transform
-        seq, qual = backward(dna, qvals, q_total, offset, sh.cap,
-                             st.lossy_quality)
+        seq, qual = backward(dna, qvals, q_total, offset, st.lossy_quality)
+        del dna, qvals
         text = native.layout_records(
-            num_rec, titles_np, title_len_np, to_numpy(seq[:q_total]),
-            to_numpy(qual[:q_total]), qual_len_np, primers, ds.color_space,
-            ds.plus_repetition)
+            num_rec, titles_np, title_len_np, to_numpy(seq), to_numpy(qual),
+            qual_len_np, primers, ds.color_space, ds.plus_repetition)
         if crcs is not None:
             got = _stream_crcs_from_text(text, ds)
             if got != crcs:
@@ -921,60 +929,65 @@ class BlockCodec:
             return False
 
 
+def _quality_values(quals: torch.Tensor, n: int,
+                    offset: int) -> torch.Tensor:
+    """The n live quality bytes -> int16 values clipped into [0, 255]."""
+    return quals[:n].to(torch.int16).sub_(offset).clamp_(0, 255)
+
+
 def _forward_transform(seqs: torch.Tensor, quals: torch.Tensor,
                        s_total: int, offset: int, cap: int, lossy: bool):
-    """Byte streams -> (dna dense syms, dna_total, qual values [0, 256))."""
-    active = torch.arange(cap, device=seqs.device) < s_total
-    seq_sym = T.dna_remap(seqs)
-    qv = torch.clamp(torch.where(active, quals.to(torch.int32) - offset, 0),
-                     0, 255)
+    """Byte streams -> (dna dense syms uint8 [cap], dna_total, quality
+    values int16 [cap]; lossy: their bins), both zero past their totals.
+    The transforms run on the s_total live positions."""
+    seq_sym = T.dna_remap(seqs[:s_total])
+    qv = _quality_values(quals, s_total, offset)
     if lossy:
-        return T.forward_lossy(seq_sym, qv, active)
-    dna, dna_total, qual_out, _ = T.forward_lossless(seq_sym, qv, active)
-    return dna, dna_total, qual_out
+        dna, dna_total, qv = T.forward_lossy(seq_sym, qv, cap)
+    else:
+        dna, dna_total, qv = T.forward_lossless(seq_sym, qv, cap)
+    return dna, dna_total, T.pad_to(qv, cap)
 
 
 def _backward_transform(dna: torch.Tensor, qual_vals: torch.Tensor, n: int,
-                        offset: int, cap: int, lossy: bool):
-    """Inverse: (dna syms, coded qual values) -> (seq bytes, qual bytes)."""
-    active = torch.arange(cap, device=dna.device) < n
+                        offset: int, lossy: bool):
+    """Inverse: (dna syms, coded qual values, whose first n are consumed)
+    -> (seq bytes [n], qual bytes [n])."""
+    qv = qual_vals[:n].to(torch.int16)
     if lossy:
-        seq_sym, qv = T.backward_lossy(dna, qual_vals, active)
+        seq_sym, qv = T.backward_lossy(dna, qv)
     else:
-        seq_sym, qv = T.backward_lossless(dna, qual_vals, active)
-    seq = T.dna_unmap(torch.where(active, seq_sym, 0))
-    qual = torch.where(active, qv + offset, 0).to(torch.uint8)
-    return seq, qual
+        seq_sym, qv = T.backward_lossless(dna, qv)
+    seq = T.dna_unmap(seq_sym)
+    del seq_sym
+    return seq, qv.add_(offset).to(torch.uint8)
 
 
 def _forward_transform_cs(seqs: torch.Tensor, quals: torch.Tensor,
                           s_total: int, offset: int, cap: int, lossy: bool):
     """Colour space: seqs are the digit streams (primers stripped) ->
-    (colour indices, dna_total, qual values or lossy bins).  Nothing folds;
-    under lossy coding a colour above 3 forces bin 0."""
-    active = torch.arange(cap, device=seqs.device) < s_total
+    (colour indices uint8 [cap] (INVALID_SYM past s_total, as the zero
+    bytes there map), dna_total, qual values or lossy bins int16 [cap]).
+    Nothing folds; under lossy coding a colour above 3 forces bin 0."""
     col = T.color_remap(seqs)
-    qv = torch.clamp(torch.where(active, quals.to(torch.int32) - offset, 0),
-                     0, 255)
+    qv = _quality_values(quals, s_total, offset)
     if lossy:
-        bins = T.quality_bin(qv)
-        return col, s_total, torch.where((col > 3) & active, 0, bins)
-    return col, s_total, qv
+        qv = T.quality_bin(qv).masked_fill_(col[:s_total] > 3, 0)
+    return col, s_total, T.pad_to(qv, cap)
 
 
 def _backward_transform_cs(col: torch.Tensor, qual_vals: torch.Tensor,
-                           n: int, offset: int, cap: int, lossy: bool):
+                           n: int, offset: int, lossy: bool):
     """Inverse of _forward_transform_cs; under lossy coding bin 0 decodes as
     '.'."""
-    active = torch.arange(cap, device=col.device) < n
+    col = col[:n]
+    qv = qual_vals[:n]
     if lossy:
-        qv = T.quality_unbin(qual_vals)
-        col = torch.where((qual_vals == 0) & active, 4, col)
+        col = col.masked_fill(qv == 0, 4)
+        qv = T.quality_unbin(qv)
     else:
-        qv = qual_vals
-    seq = T.color_unmap(torch.where(active, col, 0))
-    qual = torch.where(active, qv + offset, 0).to(torch.uint8)
-    return seq, qual
+        qv = qv.to(torch.int16)
+    return T.color_unmap(col), qv.add_(offset).to(torch.uint8)
 
 
 def _stream_crcs_from_text(text: np.ndarray, ds):

@@ -51,15 +51,14 @@ def _a19_encode(syms: torch.Tensor, n: int, nsym: int, num_lanes: int,
     Returns (payload, nwords, states, freqs)."""
     dev = syms.device
     t = cap // num_lanes
-    active_flat = torch.arange(cap, device=dev) < n
-    counts = histogram(syms, nsym, active_flat)
-    freqs = quantize_counts(counts)
+    freqs = quantize_counts(histogram(syms[:n], nsym))
     cumfull = cum_from_freqs(freqs)
-    lanes = lane_split(torch.where(active_flat, syms, 0).to(torch.int64),
-                       num_lanes)
     active = lane_active(t, lane_lengths(n, num_lanes, t, dev))
+    idx = torch.where(active, lane_split(syms[:cap], num_lanes), 0) \
+        .to(torch.int32).contiguous().view(-1)
     payload, nwords, states = rans_encode_from_freqs(
-        freqs[lanes].contiguous(), cumfull[:-1][lanes].contiguous(), active)
+        freqs.index_select(0, idx).view(t, num_lanes),
+        cumfull.index_select(0, idx).view(t, num_lanes), active)
     return payload, nwords, states, freqs
 
 
@@ -104,30 +103,43 @@ def _order8p_eff(order: int, npairs: int) -> int:
 
 
 def _to_pairs(syms: torch.Tensor, n: int, cap: int, a: int) -> torch.Tensor:
-    """[cap] base symbols -> [cap//2] pair symbols hi*a + lo (bases past n
-    zeroed)."""
-    s = torch.where(torch.arange(cap, device=syms.device) < n, syms[:cap],
-                    0).to(torch.int32)
-    return s[0::2] * a + s[1::2]
+    """[cap] base symbols -> [cap//2] int32 pair symbols hi*a + lo (bases
+    past n zeroed)."""
+    pairs = syms[0:cap:2].to(torch.int32)
+    pairs[(n + 1) // 2:] = 0
+    pairs.mul_(a)
+    pairs[:n // 2] += syms[1:cap:2][:n // 2]
+    return pairs
 
 
 def _from_pairs(pairs: torch.Tensor, a: int) -> torch.Tensor:
-    """Inverse of _to_pairs: [m] -> [2m] interleaved bases."""
-    return torch.stack([torch.div(pairs, a, rounding_mode="floor"),
-                        torch.remainder(pairs, a)], dim=1).reshape(-1)
+    """Inverse of _to_pairs: [m] -> [2m] interleaved bases (uint8)."""
+    out = torch.empty(2 * pairs.shape[0], dtype=torch.uint8,
+                      device=pairs.device)
+    out[0::2] = torch.div(pairs, a, rounding_mode="floor")
+    out[1::2] = torch.remainder(pairs, a)
+    return out
 
 
 def dna_stats(syms: torch.Tensor, n: int, cap: int) -> torch.Tensor:
     """Histogram over the 20 symbol classes (19 + invalid)."""
-    active = torch.arange(cap, device=syms.device) < n
-    s = torch.where(syms == INVALID_SYM, DNA_NSYM, syms)
-    return histogram(s, DNA_NSYM + 1, active)
+    h = histogram(syms[:n], INVALID_SYM + 1)
+    out = h[:DNA_NSYM + 1].clone()
+    out[DNA_NSYM] += h[INVALID_SYM]
+    return out
 
 
 def _dense_lut(nz: np.ndarray, device) -> torch.Tensor:
-    lut = np.zeros(DNA_NSYM, np.int32)
+    lut = np.zeros(DNA_NSYM, np.uint8)
     lut[nz] = np.arange(len(nz))
     return torch.from_numpy(lut).to(device)
+
+
+def _dense(syms: torch.Tensor, nz: np.ndarray) -> torch.Tensor:
+    """Symbols -> their index in nz (uint8; symbols above 18 read as
+    18)."""
+    return torch.index_select(_dense_lut(nz, syms.device), 0,
+                              syms.to(torch.int32).clamp_(max=DNA_NSYM - 1))
 
 
 def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
@@ -135,7 +147,6 @@ def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
     """syms: [cap] dense DNA indices (zero past n).  Returns the name of
     the scheme written."""
     cap = syms.shape[0]
-    dev = syms.device
     if n == 0:
         w.put_byte(SCHEME_EMPTY)
         return "EMPTY"
@@ -179,8 +190,7 @@ def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
         w.put_byte(SCHEME_CTX8P)
         w.put_bits(int(sum(1 << int(i) for i in nz)), 19)
         w.put_varint(n)
-        dense = _dense_lut(nz, dev)[torch.clamp(syms, max=DNA_NSYM - 1)]
-        pairs = _to_pairs(dense, n, cap, 8)
+        pairs = _to_pairs(_dense(syms, nz), n, cap, 8)
         ncp = C.stream_cap(cap // 2, npairs)
         lanes_p = C.pick_num_lanes(ncp)
         enc = C.encode_orderk(pairs[:ncp], npairs,
@@ -193,14 +203,14 @@ def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
         name = "CTX8"
         w.put_byte(SCHEME_CTX8)
         w.put_bits(int(sum(1 << int(i) for i in nz)), 19)
-        dense = _dense_lut(nz, dev)[torch.clamp(syms, max=DNA_NSYM - 1)]
-        enc = C.encode_orderk(dense[:nc], n, _order8_eff(order, n), 3, 8,
+        enc = C.encode_orderk(_dense(syms[:nc], nz), n,
+                              _order8_eff(order, n), 3, 8,
                               num_lanes, edges)
     else:
         w.put_byte(SCHEME_A19)
         a19_lanes = C.pick_num_lanes(nc, target_per_lane=2048)
         payload, nwords, states, freqs = _a19_encode(
-            syms[:nc].to(torch.int32), n, DNA_NSYM, a19_lanes, nc)
+            syms[:nc], n, DNA_NSYM, a19_lanes, nc)
         w.put_bytes(np_pack_fixed(to_numpy(freqs).astype(np.uint64), 14))
         serialize_rans(w, n, payload, nwords, states)
         return "A19"
@@ -209,22 +219,22 @@ def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
 
 
 def _fit(dec: torch.Tensor, cap: int, n: int) -> torch.Tensor:
-    """[m] decoded symbols -> [cap], zero past n."""
-    m = min(dec.shape[0], cap)
-    out = torch.zeros(cap, dtype=torch.int32, device=dec.device)
-    out[:m] = dec[:m].to(torch.int32)
-    return torch.where(torch.arange(cap, device=dec.device) < n, out, 0)
+    """[m] decoded symbols -> uint8 [cap], zero past n."""
+    m = min(dec.shape[0], cap, n)
+    out = torch.zeros(cap, dtype=torch.uint8, device=dec.device)
+    out[:m] = dec[:m]
+    return out
 
 
 def decode_dna(r: BitReader, cap: int, order: int,
                device) -> Tuple[torch.Tensor, int]:
-    """Returns ([cap] dense DNA indices zero-padded, n)."""
+    """Returns ([cap] uint8 dense DNA indices zero-padded, n)."""
     scheme = r.get_byte()
     if scheme == SCHEME_EMPTY:
-        return torch.zeros(cap, dtype=torch.int32, device=device), 0
+        return torch.zeros(cap, dtype=torch.uint8, device=device), 0
     if scheme == SCHEME_RAW:
         n = r.get_varint()
-        raw = np.frombuffer(r.get_bytes(n), np.uint8).astype(np.int32)
+        raw = np.frombuffer(r.get_bytes(n), np.uint8).copy()
         return _fit(torch.from_numpy(raw).to(device), cap, n), n
     if scheme == SCHEME_PACK2:
         n = r.get_varint()
@@ -285,6 +295,7 @@ def decode_dna(r: BitReader, cap: int, order: int,
 
 
 def _inverse(nz: np.ndarray, dense: torch.Tensor) -> torch.Tensor:
-    inv = np.zeros(8, np.int32)
+    inv = np.zeros(8, np.uint8)
     inv[: len(nz)] = nz[:8]
-    return torch.from_numpy(inv).to(dense.device)[torch.clamp(dense, 0, 7)]
+    return torch.index_select(torch.from_numpy(inv).to(dense.device), 0,
+                              dense.to(torch.int32).clamp_(0, 7))

@@ -11,11 +11,11 @@ output.  No table is transmitted.
   decode: per band, the table rebuilt on the device from the histogram,
           then one K3 launch (ops/ctx_kernels.ctx_decode_band)
 
-Histograms are integer scatter-adds of ctx * A + sym (the reference's
-int8 matmul histogram counts the same).  The geometry (stream_cap,
-pick_num_lanes, band_edges) is a pure function of the transmitted symbol
-count, so both sides derive it.  The reference's hashed contexts
-(hash_mul) are used by no codec and are not ported.
+Histograms are integer index_add_ counts of the int32 bin ids ctx * A +
+sym (the reference's int8 matmul histogram counts the same).  The
+geometry (stream_cap, pick_num_lanes, band_edges) is a pure function of
+the transmitted symbol count, so both sides derive it.  The reference's
+hashed contexts (hash_mul) are used by no codec and are not ported.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from .ctx_kernels import (MODE_HISTORY, MODE_PRECOMPUTED, CtxMode,
 from .rans import (cum_from_freqs, lane_active, lane_lengths, lane_merge,
                    lane_split, quantize_counts)
 from .rans_kernels import rans_encode_from_freqs
+from .transform import histogram
 
 
 def band_edges(t_steps: int, max_bands: int = 9,
@@ -65,15 +66,16 @@ def _check_hash(hash_mul: int) -> None:
 def history_ctx_lanes(lanes: torch.Tensor, order: int, sym_bits: int,
                       hash_mul: int = 0) -> torch.Tensor:
     """[T, L] symbol lanes -> [T, L] context ids from the previous `order`
-    symbols of the same lane (packed at sym_bits each, newest lowest)."""
+    symbols of the same lane (packed at sym_bits each, newest lowest).
+    int32 (int64 for int64 lanes), row-major."""
     _check_hash(hash_mul)
     t_steps = lanes.shape[0]
     mask = (1 << (order * sym_bits)) - 1
-    ctx = torch.zeros_like(lanes)
-    for i in range(1, order + 1):
-        prev = torch.nn.functional.pad(lanes, (0, 0, i, 0))[:t_steps]
-        ctx = ctx | (prev << ((i - 1) * sym_bits))
-    return ctx & mask
+    dt = torch.int64 if lanes.dtype == torch.int64 else torch.int32
+    ctx = torch.zeros(lanes.shape, dtype=dt, device=lanes.device)
+    for i in range(1, min(order, t_steps - 1) + 1):
+        ctx[i:] |= lanes[:-i].to(dt) << ((i - 1) * sym_bits)
+    return ctx.bitwise_and_(mask)
 
 
 def history_carry_update(carry: torch.Tensor, sym: torch.Tensor, order: int,
@@ -89,11 +91,30 @@ def hist_update(flat: torch.Tensor, active: torch.Tensor,
     """[*] flat bin ids -> [nbins] int64 counts of the active elements whose
     id lies in [0, nbins) (others are dropped, as the reference drops
     them)."""
-    ok = active & (flat >= 0) & (flat < nbins)
-    idx = torch.where(ok, flat.to(torch.int64), nbins).reshape(-1)
-    out = torch.zeros(nbins + 1, dtype=torch.int64, device=flat.device)
-    out.scatter_add_(0, idx, torch.ones_like(idx))
-    return out[:nbins]
+    return histogram(flat, nbins, active)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A row-major int32 copy of x."""
+    return torch.empty(x.shape, dtype=torch.int32,
+                       device=x.device).copy_(x)
+
+
+def _in_range(x: torch.Tensor, n: int) -> torch.Tensor:
+    """0 <= x < n, for any integer type (a uint8 x holds no value >= 256,
+    and no comparison with n may wrap)."""
+    if x.dtype == torch.uint8:
+        return x < n if n < 256 else torch.ones_like(x, dtype=torch.bool)
+    return (x >= 0) & (x < n)
+
+
+def _count(hist: torch.Tensor, ids: torch.Tensor,
+           keep: torch.Tensor) -> None:
+    """hist[:-1] += counts of the kept ids (int32, overwritten); the last
+    slot of hist takes the others."""
+    ids.masked_fill_(~keep, hist.shape[0] - 1)
+    hist.index_add_(0, ids.reshape(-1), torch.ones(
+        1, dtype=hist.dtype, device=hist.device).expand(ids.numel()))
 
 
 def ctx_models(lanes: torch.Tensor, active: torch.Tensor, ctx: torch.Tensor,
@@ -102,27 +123,36 @@ def ctx_models(lanes: torch.Tensor, active: torch.Tensor, ctx: torch.Tensor,
     input of K1.
 
     The reference takes one [A]-wide table row per symbol and sums a
-    one-hot; a flat gather of table[ctx * A + sym] gives the same values
-    (ctx clipped into range, a symbol outside [0, A) gives 0)."""
+    one-hot; a flat gather of table[ctx * A + sym] gives the same values.
+    Every caller's contexts lie in [0, num_ctx) and its symbols in
+    [0, nsym): out of range, a context is clipped and a symbol codes
+    freq 0 and is not counted.  Bin ids are int32 (num_ctx * nsym < 2^31)
+    and made for at most a quarter of the steps at a time: the last band
+    is most of T."""
     t_steps, l = lanes.shape
     dev = lanes.device
     nbins = num_ctx * nsym
-    hist = torch.zeros(nbins, dtype=torch.int64, device=dev)
+    if nbins >= 2**31:
+        raise DsrcException(f"ctx model of {num_ctx} x {nsym} bins: too wide")
+    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=dev)
     freq = torch.empty((t_steps, l), dtype=torch.int32, device=dev)
     cum = torch.empty((t_steps, l), dtype=torch.int32, device=dev)
+    rows = max(1, -(-t_steps // 4))
     for b in range(len(edges) - 1):
-        t0, t1 = edges[b], edges[b + 1]
-        table = quantize_counts(hist.view(num_ctx, nsym))     # [C, A]
-        cumfull = cum_from_freqs(table)[:, :nsym]            # [C, A]
-        bc = torch.clamp(ctx[t0:t1].to(torch.int64), 0, num_ctx - 1)
-        bs = lanes[t0:t1].to(torch.int64)
-        ok = (bs >= 0) & (bs < nsym)
-        flat = bc * nsym + torch.clamp(bs, 0, nsym - 1)
-        freq[t0:t1] = torch.where(ok, table.view(-1)[flat], 0)
-        cum[t0:t1] = torch.where(ok, cumfull.reshape(-1)[flat], 0)
-        if b + 2 < len(edges):
-            hist += hist_update(ctx[t0:t1].to(torch.int64) * nsym + bs,
-                                active[t0:t1], nbins)
+        table = quantize_counts(hist[:nbins].view(num_ctx, nsym))  # [C, A]
+        cumfull = cum_from_freqs(table)[:, :nsym].reshape(-1)
+        for t0 in range(edges[b], edges[b + 1], rows):
+            t1 = min(t0 + rows, edges[b + 1])
+            sym = lanes[t0:t1]
+            ok = _in_range(sym, nsym)
+            flat = _rows(ctx[t0:t1]).clamp_(0, num_ctx - 1).mul_(nsym) \
+                .add_(sym.clamp(0, nsym - 1))
+            for out, src in ((freq, table.view(-1)), (cum, cumfull)):
+                torch.index_select(src, 0, flat.view(-1),
+                                   out=out[t0:t1].view(-1))
+                out[t0:t1].masked_fill_(~ok, 0)
+            if b + 2 < len(edges):
+                _count(hist, flat, ok.logical_and_(active[t0:t1]))
     return freq, cum
 
 
@@ -130,8 +160,9 @@ def encode_ctx_lanes(lanes: torch.Tensor, active: torch.Tensor,
                      ctx: torch.Tensor, num_ctx: int, nsym: int,
                      edges: Tuple[int, ...]):
     """Band-adaptive encode of [T, L] symbols (decode order) with [T, L]
-    context ids: ctx_models, then K1.  Returns (payload [L, Wp], nwords
-    [L], states [L])."""
+    context ids: ctx_models, then K1.  Steps outside `active` are neither
+    coded nor counted, whatever they hold.  Returns (payload [L, Wp],
+    nwords [L], states [L])."""
     freq, cum = ctx_models(lanes, active, ctx, num_ctx, nsym, edges)
     return rans_encode_from_freqs(freq, cum, active.contiguous())
 
@@ -162,36 +193,36 @@ def decode_ctx_lanes(payload: torch.Tensor, states: torch.Tensor,
     if aux is not None:
         aux = aux.to(torch.int32).contiguous()
     nbins = num_ctx * nsym
-    hist = torch.zeros(nbins, dtype=torch.int64, device=dev)
-    steps = torch.arange(t_steps, dtype=torch.int64, device=dev)
+    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=dev)
+    steps = torch.arange(t_steps, dtype=torch.int32, device=dev)
     for b in range(len(edges) - 1):
         t0, t1 = edges[b], edges[b + 1]
-        cum = cum_from_freqs(quantize_counts(hist.view(num_ctx, nsym))) \
-            .contiguous()
+        cum = cum_from_freqs(quantize_counts(
+            hist[:nbins].view(num_ctx, nsym))).contiguous()
         ctx_decode_band(payload, x, wptr, carry, lens, cum, aux, osym, octx,
                         t0, t1, mode)
         if b + 2 < len(edges):
-            act = steps[None, t0:t1] < lens[:, None]
-            hist += hist_update(
-                octx[:, t0:t1].to(torch.int64) * nsym + osym[:, t0:t1], act,
-                nbins)
+            _count(hist, octx[:, t0:t1] * nsym + osym[:, t0:t1],
+                   steps[None, t0:t1] < lens[:, None])
     return osym.T
 
 
 def encode_orderk(syms: torch.Tensor, n: int, order: int, sym_bits: int,
                   nsym: int, num_lanes: int, edges: Tuple[int, ...],
                   hash_mul: int = 0):
-    """Order-k context coding of a flat [cap] stream (first n valid)."""
+    """Order-k context coding of a flat [cap] stream (first n valid) of
+    any integer type."""
     _check_hash(hash_mul)
-    lanes = lane_split(syms.to(torch.int32), num_lanes)
+    lanes = lane_split(syms, num_lanes)
     t_steps = lanes.shape[0]
     lengths = lane_lengths(n, num_lanes, t_steps, syms.device)
     active = lane_active(t_steps, lengths)
-    lanes = torch.where(active, lanes, 0)
     ctx = history_ctx_lanes(lanes, order, sym_bits)
-    num_ctx = 1 << (order * sym_bits)
-    payload, nwords, states = encode_ctx_lanes(lanes, active, ctx, num_ctx,
-                                               nsym, edges)
+    freq, cum = ctx_models(lanes, active, ctx, 1 << (order * sym_bits), nsym,
+                           edges)
+    del ctx
+    payload, nwords, states = rans_encode_from_freqs(freq, cum,
+                                                     active.contiguous())
     return dict(payload=payload, nwords=nwords, states=states)
 
 

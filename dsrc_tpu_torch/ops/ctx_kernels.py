@@ -68,13 +68,17 @@ class CtxMode:
 
 def coarse_ctx(h: torch.Tensor, qbits: int, lags: Tuple[int, ...]
                ) -> torch.Tensor:
-    """The coarse context of an exact-history carry (CtxMode's coarse)."""
+    """The coarse context of an exact-history carry (CtxMode's coarse):
+    lag k's top c of the qbits bits of symbol k, (h >> (k * qbits +
+    qbits - c)) & (2^c - 1), packed oldest-last.  One result and one
+    scratch tensor, updated in place."""
     ctx = torch.zeros_like(h)
-    qmask = (1 << qbits) - 1
+    part = torch.empty_like(h)
     for k, c in enumerate(lags):
-        s = (h >> (k * qbits)) & qmask
-        ctx = (ctx << c) | ((s >> (qbits - c)) if c <= qbits
-                            else torch.zeros_like(s))
+        ctx.bitwise_left_shift_(c)
+        if c <= qbits:
+            torch.bitwise_right_shift(h, k * qbits + qbits - c, out=part)
+            ctx.bitwise_or_(part.bitwise_and_((1 << c) - 1))
     return ctx
 
 

@@ -45,10 +45,12 @@ def lane_lengths(n: int, num_lanes: int, t_steps=None,
 
 def lane_split(arr: torch.Tensor, num_lanes: int) -> torch.Tensor:
     """[n] -> [T, L] contiguous chunks (lane j covers [j*T, (j+1)*T)).  The
-    result is the transpose of a contiguous [L, T] tensor."""
+    result is the transpose of a contiguous [L, T] tensor: a view of arr
+    when n is a multiple of num_lanes, else of a zero-padded copy."""
     n = arr.shape[0]
     t = -(-n // num_lanes) if n else 1
-    arr = torch.nn.functional.pad(arr, (0, t * num_lanes - n))
+    if t * num_lanes != n:
+        arr = torch.nn.functional.pad(arr, (0, t * num_lanes - n))
     return arr.reshape(num_lanes, t).T
 
 

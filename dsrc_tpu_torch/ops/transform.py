@@ -25,7 +25,7 @@ HASH_QUAL = 2     # quality value of '#' at offset 33 (truncation symbol)
 
 
 def _lut(chars: bytes, fill: int) -> torch.Tensor:
-    lut = torch.full((256,), fill, dtype=torch.int32)
+    lut = torch.full((256,), fill, dtype=torch.uint8)
     for i, ch in enumerate(chars):
         lut[ch] = i
     return lut
@@ -37,19 +37,24 @@ _COLOR_LUT = _lut(COLOR_CHARS, INVALID_SYM)
 _COLOR_UNLUT = torch.tensor(list(COLOR_CHARS), dtype=torch.uint8)
 
 
+def _remap(data: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    return torch.index_select(lut.to(data.device), 0,
+                              data.to(torch.int32))
+
+
 def _unmap(syms: torch.Tensor, unlut: torch.Tensor) -> torch.Tensor:
     """Dense indices -> uint8 chars; an index outside the alphabet gives
     0."""
-    s = syms.to(torch.int64)
-    ok = (s >= 0) & (s < len(unlut))
-    chars = unlut.to(syms.device)[torch.clamp(s, 0, len(unlut) - 1)]
-    return torch.where(ok, chars, torch.zeros_like(chars))
+    n = len(unlut)
+    chars = torch.index_select(unlut.to(syms.device), 0,
+                               syms.to(torch.int32).clamp_(0, n - 1))
+    return chars.masked_fill_((syms < 0) | (syms >= n), 0)
 
 
 def dna_remap(data: torch.Tensor) -> torch.Tensor:
     """uint8 bytes -> dense DNA indices (INVALID_SYM outside the
-    alphabet), int32."""
-    return _DNA_LUT.to(data.device)[data.to(torch.int64)]
+    alphabet), uint8."""
+    return _remap(data, _DNA_LUT)
 
 
 def dna_unmap(syms: torch.Tensor) -> torch.Tensor:
@@ -58,63 +63,77 @@ def dna_unmap(syms: torch.Tensor) -> torch.Tensor:
 
 def color_remap(data: torch.Tensor) -> torch.Tensor:
     """uint8 colour-space bytes -> indices into "0123." (INVALID_SYM
-    outside it), int32."""
-    return _COLOR_LUT.to(data.device)[data.to(torch.int64)]
+    outside it), uint8."""
+    return _remap(data, _COLOR_LUT)
 
 
 def color_unmap(syms: torch.Tensor) -> torch.Tensor:
     return _unmap(syms, _COLOR_UNLUT)
 
 
-def compact(values: torch.Tensor, keep: torch.Tensor):
-    """Stream compaction: values[keep] left-packed, zero-padded.  Returns
-    (packed [n], count as a 0-dim int64 tensor)."""
-    n = values.shape[0]
-    k = keep.to(torch.int64)
-    pos = torch.where(keep, torch.cumsum(k, 0) - k, n)
-    out = torch.zeros(n + 1, dtype=values.dtype, device=values.device)
-    out.scatter_(0, pos, values)
-    return out[:n], k.sum()
+def compact(values: torch.Tensor, keep: torch.Tensor, size: int):
+    """Stream compaction: values[keep] left-packed into zeros of length
+    size.  Returns (packed, count).  The kept positions come from one
+    nonzero (int64, as long as the count; a host sync)."""
+    sel = torch.nonzero(keep).view(-1)
+    count = sel.shape[0]
+    out = torch.zeros(size, dtype=values.dtype, device=values.device)
+    torch.index_select(values, 0, sel, out=out[:count])
+    return out, count
 
 
 def expand_positions(keep: torch.Tensor) -> torch.Tensor:
-    """For each position, its index in the compacted stream (valid where
-    keep)."""
-    k = keep.to(torch.int64)
-    return torch.cumsum(k, 0) - k
+    """For each position, its index in the compacted stream (int32; valid
+    where keep).  The scan runs in place: cumsum with a wider dtype would
+    copy its input first."""
+    return keep.to(torch.int32).cumsum_(0).sub_(1)
+
+
+def pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x zero-padded to length n."""
+    return torch.nn.functional.pad(x, (0, n - x.shape[0]))
 
 
 def take_clip(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """arr[idx] with indices clipped into range (jnp.take mode="clip")."""
-    return arr[torch.clamp(idx, 0, arr.shape[0] - 1)]
+    """arr[idx] for a 1-D idx, indices clipped into range (jnp.take
+    mode="clip"), gathered with int32 or int64 indices as given."""
+    return torch.index_select(arr, 0, torch.clamp(idx, 0, arr.shape[0] - 1))
 
 
 # --------------------------------------------------------------------------
 # Lossless forward / backward (ambiguity folding)
 # --------------------------------------------------------------------------
+# The forward transforms take the n live positions of a block's streams
+# and return int16 quality values (a folded value can exceed 255 when a
+# symbol outside the alphabet folds) and the uint8 DNA stream packed into
+# `cap` zeros.
 
-def forward_lossless(seq_sym: torch.Tensor, qual: torch.Tensor,
-                     active: torch.Tensor):
-    """Returns (dna [S] left-packed indices, dna_total, qual_out [S],
-    fold [S])."""
-    fold = (seq_sym > 3) & (qual < 7) & active
-    qual_out = torch.where(fold, qual + FOLD_BASE + ((seq_sym - 2) << 3) - 16,
-                           qual)
-    dna, dna_total = compact(seq_sym, active & ~fold)
-    return dna, dna_total, qual_out, fold
+def forward_lossless(seq_sym: torch.Tensor, qual: torch.Tensor, cap: int):
+    """seq_sym uint8 [n], qual int16 [n] (consumed: folded in place).
+    Returns (dna uint8 [cap] left-packed, dna_total, qual)."""
+    fold = (seq_sym > 3) & (qual < 7)
+    add = seq_sym.to(torch.int16)
+    add.sub_(2).mul_(8).add_(FOLD_BASE - 16).mul_(fold)
+    qual += add
+    del add
+    dna, dna_total = compact(seq_sym, fold.logical_not_(), cap)
+    return dna, dna_total, qual
 
 
-def backward_lossless(dna: torch.Tensor, qual_enc: torch.Tensor,
-                      active: torch.Tensor):
-    """Invert forward_lossless.  Returns (seq_sym [S], qual [S])."""
-    fold = (qual_enc >= FOLD_BASE) & active
-    idx_folded = ((qual_enc - FOLD_BASE + 16) >> 3) + 2
-    qual = torch.where(fold,
-                       qual_enc - FOLD_BASE - ((idx_folded - 2) << 3) + 16,
-                       qual_enc)
-    src = expand_positions(active & ~fold)
-    seq_sym = torch.where(fold, idx_folded, take_clip(dna, src))
-    return torch.where(active, seq_sym, 0), qual
+def backward_lossless(dna: torch.Tensor, qual_enc: torch.Tensor):
+    """Invert forward_lossless on the n live positions: dna [>= kept]
+    symbols, qual_enc int16 [n] (consumed: unfolded in place).  Returns
+    (seq_sym uint8 [n], qual)."""
+    fold = qual_enc >= FOLD_BASE
+    idx_folded = qual_enc.sub(FOLD_BASE - 16).bitwise_right_shift_(3) \
+        .add_(2).mul_(fold)
+    qual_enc.sub_(idx_folded.sub(2).mul_(8).add_(FOLD_BASE - 16).mul_(fold))
+    seq_sym = idx_folded.to(torch.uint8)
+    del idx_folded
+    keep = fold.logical_not_()
+    src = expand_positions(keep)
+    seq_sym.add_(take_clip(dna, src).mul_(keep))
+    return seq_sym, qual_enc
 
 
 # --------------------------------------------------------------------------
@@ -122,66 +141,75 @@ def backward_lossless(dna: torch.Tensor, qual_enc: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def quality_bin(qual: torch.Tensor) -> torch.Tensor:
-    b = torch.zeros(qual.shape, dtype=torch.int32, device=qual.device)
+    """Bin of each quality value, int16."""
+    b = torch.zeros(qual.shape, dtype=torch.int16, device=qual.device)
     for t in LOSSY_BOUNDS:
-        b = b + (qual >= t).to(torch.int32)
+        b.add_(qual >= t)
     return b
 
 
 def quality_unbin(bins: torch.Tensor) -> torch.Tensor:
-    out = torch.zeros(bins.shape, dtype=torch.int32, device=bins.device)
-    for i, rep in enumerate(LOSSY_REPS):
-        out = torch.where(bins == i, rep, out)
-    return out
+    """Representative of each bin in [0, 8), int16 (others give 0)."""
+    reps = torch.tensor(LOSSY_REPS + (0,), dtype=torch.int16,
+                        device=bins.device)
+    return torch.index_select(reps, 0, bins.to(torch.int32).clamp_(0, 8)
+                              .masked_fill_(bins < 0, 8))
 
 
-def forward_lossy(seq_sym: torch.Tensor, qual: torch.Tensor,
-                  active: torch.Tensor):
+def forward_lossy(seq_sym: torch.Tensor, qual: torch.Tensor, cap: int):
     """Quality -> 8 bins; ambiguous bases force bin 0 and leave the DNA
-    stream; any bin-0 position decodes as N (lossy by design)."""
-    bins = quality_bin(qual)
-    bins = torch.where((seq_sym > 3) & active, 0, bins)
-    dna, dna_total = compact(seq_sym, active & (bins != 0))
+    stream; any bin-0 position decodes as N (lossy by design).  Returns
+    (dna uint8 [cap], dna_total, bins int16 [n])."""
+    bins = quality_bin(qual).masked_fill_(seq_sym > 3, 0)
+    dna, dna_total = compact(seq_sym, bins != 0, cap)
     return dna, dna_total, bins
 
 
-def backward_lossy(dna: torch.Tensor, bins: torch.Tensor,
-                   active: torch.Tensor):
-    keep = active & (bins != 0)
+def backward_lossy(dna: torch.Tensor, bins: torch.Tensor):
+    """Inverse on the n live positions: (seq_sym uint8 [n], qual int16
+    [n])."""
+    keep = bins != 0
     src = expand_positions(keep)
-    seq_sym = torch.where(keep, take_clip(dna, src), 4)          # N
-    seq_sym = torch.where(active, seq_sym, 0)
-    qual = torch.where(active, quality_unbin(bins), 0)
-    return seq_sym, qual
+    seq_sym = take_clip(dna, src).to(torch.uint8)
+    del src
+    seq_sym.masked_fill_(keep.logical_not_(), 4)               # N
+    return seq_sym, quality_unbin(bins)
 
 
 # --------------------------------------------------------------------------
 # Stats for scheme selection
 # --------------------------------------------------------------------------
 
+SCATTER_SLICE = 1 << 25
+
+
 def segment_max(values: torch.Tensor, seg_ids: torch.Tensor,
                 num_seg: int) -> torch.Tensor:
     """Per-segment max, floored at 0 (the reference's zero-initialised
-    scatter-max); ids outside [0, num_seg) are dropped."""
-    ok = (seg_ids >= 0) & (seg_ids < num_seg)
-    idx = torch.where(ok, seg_ids.to(torch.int64), num_seg)
+    scatter-max); ids outside [0, num_seg) are dropped.  The scatter takes
+    an int64 index, so a long stream goes in slices of SCATTER_SLICE."""
     out = torch.zeros(num_seg + 1, dtype=values.dtype, device=values.device)
-    out.scatter_reduce_(0, idx, values, reduce="amax", include_self=True)
-    return out[:num_seg]
-
-
-def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
-                num_seg: int) -> torch.Tensor:
-    ok = (seg_ids >= 0) & (seg_ids < num_seg)
-    idx = torch.where(ok, seg_ids.to(torch.int64), num_seg)
-    out = torch.zeros(num_seg + 1, dtype=values.dtype, device=values.device)
-    out.scatter_add_(0, idx, values)
+    for a in range(0, values.shape[0], SCATTER_SLICE):
+        ids = seg_ids[a:a + SCATTER_SLICE]
+        idx = ids.to(torch.int64).masked_fill_((ids < 0) | (ids >= num_seg),
+                                               num_seg)
+        out.scatter_reduce_(0, idx, values[a:a + SCATTER_SLICE],
+                            reduce="amax", include_self=True)
     return out[:num_seg]
 
 
 def histogram(values: torch.Tensor, nsym: int,
-              active: torch.Tensor) -> torch.Tensor:
-    """Counts (int64) of the active values in [0, nsym)."""
-    return segment_sum(active.to(torch.int64),
-                       torch.where(active, values.to(torch.int64), nsym),
-                       nsym)
+              active: torch.Tensor = None) -> torch.Tensor:
+    """Counts (int64) of the values in [0, nsym) (of the active ones, when
+    a mask is given), by one index_add_ of int32 bin ids."""
+    ids = values.to(torch.int32, copy=True)
+    wide = values if values.dtype == torch.int64 else ids
+    bad = (wide < 0) | (wide >= nsym)
+    if active is not None:
+        bad |= ~active
+    ids.masked_fill_(bad, nsym)
+    del bad
+    out = torch.zeros(nsym + 1, dtype=torch.int64, device=values.device)
+    out.index_add_(0, ids.reshape(-1), torch.ones(
+        1, dtype=torch.int64, device=values.device).expand(ids.numel()))
+    return out[:nsym]
