@@ -6,7 +6,9 @@
 Phases, in order, each printing one JSON line; any failure raises and the
 script exits non-zero without printing a result:
 
-  1 card     the card's name and power limit (nvidia-smi) and torch's name
+  1 card     the card's name and power limit (nvidia-smi), torch's name,
+             and whether native/libdsrc_host.so serves the host's stages
+             (it is not built here; else its numpy fallbacks do)
   2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc (in parallel);
              each kernel's registers, shared memory and spills (ptxas -v)
   3 kernels  K1 (rANS encode) and K2 (rANS decode) against their plain
@@ -30,6 +32,20 @@ script exits non-zero without printing a result:
              shapes of a
              256 MB -m2 block (synthetic streams from a seed, decoded to
              their encoded symbols; no plain version at that size).
+             K5 (histogram): every K5 launch of phases 4-13 is held to
+             its plain version on its own inputs, exactly, as the path
+             runs (HistPlainCheck; the distributed children check their
+             own).  After phase 13, every K5 call of one round trip each
+             of a 64 MB -m1 block, an 8 MB SEMI block and an 8 MB mode-0
+             block, recorded with its inputs and replayed: exact against
+             its plain version, timed (host-issued and device, and on
+             each route where both can hold the bins), beside today's
+             library calls on the same ids (index_add_, bincount) and its
+             bound; the routes' times over widths and densities (the
+             route sweep, which SHARED_MIN_PER_BIN is read from); then
+             its edge cases (no element and one, the route boundary,
+             every value type on both routes, one bin, positional P = 1,
+             37, 100, 4,099, 2^24 bins).
   4 semi     a 64 MB SEMI file (variable titles, 8 blocks of 8 MB) through
              DsrcModule(device="cuda"): compress, decompress, byte compare
   5 uniform  the same with a 16 MB fixed-width (UNIFORM) file
@@ -85,7 +101,8 @@ script exits non-zero without printing a result:
  15 profile  the SEMI round trip, one 8 MB mode-0 block's and one 64 MB -m1
              block's round trip again under torch.profiler: the device's
              busy share of the wall time, its time by kernel, each
-             kernel's device time and the launch counts
+             kernel's device time, the launch counts, and PyTorch's
+             index_add_ and bincount kernels by their whole names
 
 Phases 4-13 are the main paths: each run sets the launch counts to 0,
 drives the path and reads the counts, and fails when a kernel of that path
@@ -845,7 +862,7 @@ def generic_phase(device, big: bytes, small: bytes):
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.config import InputParameters
     from dsrc_tpu_torch.utils.synth import make_fastq
-    gen = ("rans_encode", "ctx_decode")
+    gen = ("rans_encode", "ctx_decode", "hist")
     res = round_trip(device, "generic_m1_128MB", big, m1_params(64 * MB),
                      gen, keep_archive=True)
     big_archive = res.pop("archive")
@@ -884,11 +901,392 @@ def generic_phase(device, big: bytes, small: bytes):
 
 
 # --------------------------------------------------------------------------
+# Phase 3: K5 (histogram) on the calls of the main path
+# --------------------------------------------------------------------------
+
+# integer operations per counted element: the mask and length tests, the
+# range test, the bin arithmetic (clamp, multiply-add) and the atomic
+HIST_OPS_PER_ELEM = 8
+
+
+def _hist_call(form, vals, rows, cols, t0, nsym, nbins, ctx, mask,
+               lengths) -> dict:
+    """A K5 call as hist_kernels._launch is given it: its form (the
+    wrapper's name), inputs and shape."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    return dict(form=form, vals=vals, rows=rows, cols=cols, t0=t0,
+                nsym=nsym, nbins=nbins, ctx=ctx, mask=mask, lengths=lengths,
+                route=HK._ROUTE or HK.hist_route(nbins, rows * cols))
+
+
+def hist_capture(device, name: str, data: bytes, params=None) -> list:
+    """One round trip of `data` through DsrcModule on the card with every
+    K5 launch recorded: its form and a copy of its inputs (each wrapper
+    reaches the card through hist_kernels._launch)."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    calls = []
+    launch = HK._launch
+
+    def record(form, hist, vals, ld, t0, rows, cols, hi_kind, nsym, nctx,
+               nbins, ctx=None, mask=None, lengths=None):
+        copy = lambda t: None if t is None else t.clone()  # noqa: E731
+        calls.append(_hist_call(form, vals.clone(), rows, cols, t0, nsym,
+                                nbins, copy(ctx), copy(mask), copy(lengths)))
+        launch(form, hist, vals, ld, t0, rows, cols, hi_kind, nsym, nctx,
+               nbins, ctx=ctx, mask=mask, lengths=lengths)
+    HK._launch = record
+    try:
+        round_trip(device, name, data, params, kernels=("hist",))
+    finally:
+        HK._launch = launch
+    return calls
+
+
+def hist_plain_into(c, hist, chunk: int) -> None:
+    """The plain version of K5 call c added into hist (its first nbins
+    bins), over at most `chunk` elements at a time (rows of the context
+    and positional forms), so that its temporaries stay small."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    rows, cols, nb = c["rows"], c["cols"], c["nbins"]
+    if c["form"] == "hist_count":
+        v = c["vals"].reshape(-1)
+        m = None if c["mask"] is None else c["mask"].reshape(-1)
+        for i in range(0, v.numel(), chunk):
+            HK.hist_count_plain(hist, v[i:i + chunk],
+                                None if m is None else m[i:i + chunk])
+        return
+    step = max(1, chunk // max(1, cols))
+    for r in range(0, rows, step):
+        if c["form"] == "hist_count_ctx":
+            HK.hist_count_ctx_plain(hist, c["ctx"][r:r + step],
+                                    c["vals"][r:r + step], c["nsym"],
+                                    c["lengths"][r:r + step], c["t0"],
+                                    c["t0"] + cols)
+        else:
+            hist[:nb] += HK.pos_hist_plain(c["vals"][r:r + step],
+                                           min(step, rows - r),
+                                           c["nsym"]).reshape(-1)
+
+
+class HistPlainCheck:
+    """While entered, every K5 launch (hist_kernels._launch) in this
+    process is held to its plain version on the same inputs, exactly: the
+    plain version adds into a copy of the caller's histogram
+    (hist_plain_into, CHUNK elements at a time, so that the paths' peak
+    device memory grows by at most about 100 MB), the launch adds into the
+    histogram itself, and the two must be equal.  The launch is the main
+    path's own, counted once as without the check; the check launches
+    nothing.  `checked` counts the checked launches by form and bins; a
+    difference raises in the launching thread and is kept in `failures`."""
+    CHUNK = 1 << 24
+
+    def __init__(self):
+        self.checked, self.failures = {}, []
+        self._lock = threading.Lock()
+
+    def total(self) -> int:
+        return sum(self.checked.values())
+
+    def __enter__(self):
+        from dsrc_tpu_torch.ops import hist_kernels as HK
+        self._launch = launch = HK._launch
+
+        def checked(form, hist, vals, ld, t0, rows, cols, hi_kind, nsym,
+                    nctx, nbins, ctx=None, mask=None, lengths=None):
+            want = hist.clone()
+            hist_plain_into(_hist_call(form, vals, rows, cols, t0, nsym,
+                                       nbins, ctx, mask, lengths), want,
+                            self.CHUNK)
+            launch(form, hist, vals, ld, t0, rows, cols, hi_kind, nsym,
+                   nctx, nbins, ctx=ctx, mask=mask, lengths=lengths)
+            if rows * cols == 0:
+                return                      # _launch launched nothing
+            e = _err(hist[:nbins], want[:nbins])
+            key = f"{form}/{nbins}"
+            with self._lock:
+                self.checked[key] = self.checked.get(key, 0) + 1
+                if e:
+                    self.failures.append(f"{key} ({rows} x {cols}): max "
+                                         f"abs err {e}")
+            if e:
+                raise AssertionError(f"K5 differs from its plain version "
+                                     f"on a main path: {form}, {rows} x "
+                                     f"{cols} into {nbins} bins, max abs "
+                                     f"err {e}")
+        HK._launch = checked
+        return self
+
+    def __exit__(self, *exc):
+        from dsrc_tpu_torch.ops import hist_kernels as HK
+        HK._launch = self._launch
+
+
+def _hist_fn(c, hist, plain: bool):
+    """A call of the recorded K5 call c, or of its plain version, adding
+    into hist [nbins + 1] (the positional form returns its own)."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    if c["form"] == "hist_count":
+        fn = HK.hist_count_plain if plain else HK.hist_count
+        return lambda: fn(hist, c["vals"], c["mask"])
+    if c["form"] == "hist_count_ctx":
+        fn = HK.hist_count_ctx_plain if plain else HK.hist_count_ctx
+        return lambda: fn(hist, c["ctx"], c["vals"], c["nsym"],
+                          c["lengths"], c["t0"], c["t0"] + c["cols"])
+    fn = HK.pos_hist_plain if plain else HK.pos_hist
+    return lambda: fn(c["vals"], c["rows"], c["nsym"])
+
+
+def _hist_counts(c, plain: bool):
+    import torch
+    hist = torch.zeros(c["nbins"] + 1, dtype=torch.int64,
+                       device=c["vals"].device)
+    out = _hist_fn(c, hist, plain)()
+    return (hist[:-1] if out is None else out.reshape(-1)).clone()
+
+
+def _library_fns(c, hist):
+    """The library calls that count the same bins: today's index_add_ of
+    the plain version's int32 ids (the dropped ones sent to the scratch
+    bin) and torch.bincount of the same ids; for the positional form,
+    today's bincount of the plain version's int64 keys (twice).  The ids
+    are made once, outside the timed calls."""
+    import torch
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    nb = c["nbins"]
+    if c["form"] == "pos_hist":
+        keys = HK.pos_bin_keys(c["vals"], c["rows"], c["nsym"]).reshape(-1)
+        fn = lambda: torch.bincount(keys, minlength=nb)  # noqa: E731
+        return fn, fn
+    if c["form"] == "hist_count":
+        ids = HK.flat_bin_ids(c["vals"], nb, c["mask"])
+    else:
+        ids = HK.ctx_bin_ids(c["ctx"], c["vals"], c["nsym"], c["lengths"],
+                             c["t0"], c["t0"] + c["cols"], nb)
+    ids = ids.reshape(-1).contiguous()
+    ones = torch.ones(1, dtype=torch.int64, device=ids.device) \
+        .expand(ids.numel())
+    return (lambda: hist.index_add_(0, ids, ones),
+            lambda: torch.bincount(ids, minlength=nb + 1))
+
+
+def hist_bound(c, touched: int):
+    """K5's bound inputs for one call: bytes (each input element read once:
+    value, mask, context; the lengths; the bins the data touch read and
+    written, where the positional form writes every bin of its new
+    histogram) and integer operations (HIST_OPS_PER_ELEM an element)."""
+    n = c["rows"] * c["cols"]
+    nbytes = n * c["vals"].element_size()
+    nbytes += n if c["mask"] is not None else 0
+    nbytes += 4 * n if c["ctx"] is not None else 0
+    nbytes += 4 * c["rows"] if c["lengths"] is not None else 0
+    nbytes += 8 * c["nbins"] if c["form"] == "pos_hist" else 16 * touched
+    return nbytes, HIST_OPS_PER_ELEM * n
+
+
+def _sum(a, b):
+    return None if a is None or b is None else a + b
+
+
+def _route_device_ms(fn, route: str, reps: int):
+    """time_device_ms of fn with every K5 launch on `route`."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    HK._ROUTE = route
+    try:
+        return time_device_ms(fn, reps)
+    finally:
+        HK._ROUTE = None
+
+
+def hist_checks(device, name: str, calls: list, reps: int = 10) -> dict:
+    """Each recorded call: K5 against its plain version on the card from
+    an empty histogram, exact; then K5's time as the host issues the calls
+    (`ms`) and on the device alone (`device_ms`), the plain version's, the
+    library calls' and the bound (summed over the calls: each call's
+    larger of its bytes and operations times); where the shared route can
+    hold the bins, the device time on each route (`shared_device_ms`,
+    `global_device_ms`).  Prints one line per (form, bins, route) group and
+    one for all calls; returns the sums."""
+    import torch
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    groups = {}
+    for c in calls:
+        got, want = _hist_counts(c, False), _hist_counts(c, True)
+        e = _err(got, want)
+        if got.shape != want.shape or e:
+            raise AssertionError(f"K5 differs from its plain version on "
+                                 f"{name} {c['form']} ({c['rows']} x "
+                                 f"{c['cols']} into {c['nbins']} bins): max "
+                                 f"abs err {e}")
+        nbytes, nops = hist_bound(c, int((want != 0).sum()))
+        hist = torch.zeros(c["nbins"] + 1, dtype=torch.int64, device=device)
+        k5 = _hist_fn(c, hist, False)
+        index_add, bincount = _library_fns(c, hist)
+        rec = dict(calls=1, elements=c["rows"] * c["cols"],
+                   counted=int(want.sum()), max_abs_err=e,
+                   ms=time_ms(k5, reps), device_ms=time_device_ms(k5, reps),
+                   plain_ms=time_ms(_hist_fn(c, hist, True), 1),
+                   library_ms=time_ms(index_add, reps),
+                   bincount_ms=time_ms(bincount, reps),
+                   bound_ms=bound(nbytes, nops)[0], bytes=nbytes, ops=nops)
+        routes = {}
+        if c["nbins"] * 4 <= HK.HIST_SMEM_BUDGET:
+            routes = {f"{r}_device_ms": _route_device_ms(k5, r, reps)
+                      for r in HK.ROUTES}
+        del hist, index_add, bincount
+        for key, extra in (((c["form"], c["nbins"], c["route"]), routes),
+                           (("all", 0, ""), {})):
+            g = groups.setdefault(key, dict.fromkeys({**rec, **extra}, 0))
+            for k, v in {**rec, **extra}.items():
+                g[k] = max(g[k], v) if k == "max_abs_err" else _sum(g[k], v)
+    for (form, nbins, route), g in sorted(groups.items()):
+        emit({"phase": "kernels", "stream": f"{name}_hist", "form": form,
+              "bins": nbins, "route": route, **g,
+              "bound_by": bound(g["bytes"], g["ops"])[1]})
+    total = groups[("all", 0, "")]
+    total["bound_by"] = bound(total["bytes"], total["ops"])[1]
+    return total
+
+
+# histogram widths of the main paths that the shared route can hold: the
+# -m1 bands' 4,096, the SEMI positional 100 x 64, the mode-0 titles'
+# 32,768, and the budget's most
+HIST_SWEEP_BINS = (4096, 6400, 32768, 227 * 1024 // 4)
+HIST_SWEEP_PER_BIN = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def hist_route_sweep(device, reps: int = 10) -> dict:
+    """K5's device time on each route, flat form, int32 ids, at each width
+    of HIST_SWEEP_BINS and density of HIST_SWEEP_PER_BIN (elements a bin),
+    for uniform ids and skewed ones (geometric, mean nbins / 16); with
+    each (width, ids) pair's crossover: the least density from which the
+    shared route is no slower at every density measured (None: never).
+    Sets no route: hist_route's floor SHARED_MIN_PER_BIN is read from it."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(57)
+    rows, cross = [], {}
+    for nbins in HIST_SWEEP_BINS:
+        hist = torch.zeros(nbins + 1, dtype=torch.int64, device=device)
+        for dist in ("uniform", "skewed"):
+            wins = []
+            for k in HIST_SWEEP_PER_BIN:
+                n = k * nbins
+                ids = rng.integers(0, nbins, n) if dist == "uniform" else \
+                    np.minimum(rng.geometric(16 / nbins, n) - 1, nbins - 1)
+                ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+                fn = lambda: HK.hist_count(hist, ids)  # noqa: E731
+                t = {r: _route_device_ms(fn, r, reps) for r in HK.ROUTES}
+                rows.append({"bins": nbins, "ids": dist, "per_bin": k,
+                             "shared_device_ms": t["shared"],
+                             "global_device_ms": t["global"]})
+                wins.append(None not in t.values()
+                            and t["shared"] <= t["global"])
+            at = [k for i, k in enumerate(HIST_SWEEP_PER_BIN)
+                  if all(wins[i:])]
+            cross[f"{nbins}_{dist}"] = at[0] if at else None
+        del hist
+    out = {"phase": "kernels", "stream": "hist_route_sweep",
+           "shared_min_per_bin": HK.SHARED_MIN_PER_BIN,
+           "crossover_per_bin": cross, "rows": rows}
+    emit(out)
+    return out
+
+
+def hist_edge_checks(device) -> int:
+    """K5 against its plain version on the card, exact, at the edges: no
+    element and one, the route boundary (HIST_SMEM_BUDGET / 4 bins and one
+    more), every value type on both routes, one bin taking every element,
+    a positional P that does not divide the grid's stride, and a 2^24-bin
+    histogram (order-7 DNA, CTX8).  Returns the largest error."""
+    import numpy as np
+    import torch
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(55)
+    worst = 0
+
+    def flat(ids, mask, nbins, route=None, what=""):
+        nonlocal worst
+        ids = torch.from_numpy(np.ascontiguousarray(ids)).to(device)
+        m = None if mask is None else torch.from_numpy(mask).to(device)
+        got = torch.zeros(nbins + 1, dtype=torch.int64, device=device)
+        want = torch.zeros_like(got)
+        HK._ROUTE = route
+        try:
+            HK.hist_count(got, ids, m)
+        finally:
+            HK._ROUTE = None
+        HK.hist_count_plain(want, ids, m)
+        e = _err(got[:-1], want[:-1])
+        if e:
+            raise AssertionError(f"K5 edge case {what}: max abs err {e}")
+        worst = max(worst, e)
+
+    budget = HK.HIST_SMEM_BUDGET // 4
+    for n in (0, 1, 33):
+        for route in HK.ROUTES:
+            flat(rng.integers(0, 300, n), rng.random(n) < 0.5, 300, route,
+                 f"n={n} {route}")
+    for nbins in (budget, budget + 1):
+        flat(np.minimum(rng.geometric(1e-4, 1 << 20) - 1, nbins + 5),
+             None, nbins, HK.hist_route(nbins),
+             f"{nbins} bins {HK.hist_route(nbins)}")
+    for dt in (np.uint8, np.int16, np.int32, np.int64):
+        lo, hi, nbins = (0, 250, 200) if dt == np.uint8 else \
+            (-50, 30_100, 30_000)
+        for route in HK.ROUTES:
+            flat(rng.integers(lo, hi, 3_000_001).astype(dt),
+                 rng.random(3_000_001) < 0.8, nbins, route,
+                 f"{np.dtype(dt).name} {route}")
+    for route in HK.ROUTES:
+        flat(np.full(2_000_000, 77, np.int32), None, 4096, route,
+             f"one bin {route}")
+    for p, nsym, dt in ((37, 64, np.uint8), (100, 64, np.int32),
+                        (1, 19, np.int16), (4099, 64, np.uint8)):
+        mat = torch.from_numpy(np.minimum(rng.geometric(
+            0.1, (33_537, p)) - 1, nsym - 1).astype(dt)).to(device)
+        for route in ("global",) + (
+                ("shared",) if HK.hist_route(p * nsym) == "shared" else ()):
+            HK._ROUTE = route
+            try:
+                got = HK.pos_hist(mat, 33_411, nsym)
+            finally:
+                HK._ROUTE = None
+            e = _err(got, HK.pos_hist_plain(mat, 33_411, nsym))
+            if e:
+                raise AssertionError(f"K5 positional P={p} {route}: max abs "
+                                     f"err {e}")
+    flat(np.minimum(rng.geometric(1e-6, 1 << 22) - 1, (1 << 24) + 9),
+         rng.random(1 << 22) < 0.9, 1 << 24, None, "2^24 bins")
+    return worst
+
+
+def hist_phase(device, m1_block: bytes, semi_block: bytes,
+               mode0_block: bytes) -> dict:
+    """K5 on the recorded calls of one round trip each of a 64 MB -m1
+    block, an 8 MB SEMI block and an 8 MB mode-0 block (hist_checks: the
+    times, and the route comparison), the route sweep, then the edge
+    cases.  Returns {block: sums}, the sweep and the edges' error."""
+    import torch
+    out = {}
+    for name, data, params in (("m1_64MB", m1_block, m1_params(64 * MB)),
+                               ("semi_8MB", semi_block, None),
+                               ("semi_mode0_8MB", mode0_block, None)):
+        calls = hist_capture(device, f"hist_{name}", data, params)
+        out[name] = hist_checks(device, name, calls)
+        del calls
+        torch.cuda.empty_cache()
+    out["route_sweep"] = hist_route_sweep(device)["crossover_per_bin"]
+    out["edge_max_abs_err"] = hist_edge_checks(device)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phases 4-6: the main path through DsrcModule
 # --------------------------------------------------------------------------
 
 def round_trip(device, name: str, data: bytes, params=None,
-               kernels=("rans_encode", "rans_decode"),
+               kernels=("rans_encode", "rans_decode", "hist"),
                keep_archive: bool = False) -> dict:
     """Compress and decompress `data` through DsrcModule on `device`, with
     the launch counts set to 0 just before and read just after; fails
@@ -945,10 +1343,14 @@ def fastq_of_size(nbytes: int, seed: int, fixed_width: bool) -> bytes:
 
 
 def profile_round_trip(device, name: str, data: bytes, params=None,
-                       kernels=("rans_encode", "rans_decode")) -> dict:
+                       kernels=("rans_encode", "rans_decode", "hist")
+                       ) -> dict:
     """One round trip under torch.profiler: the device's busy time (union
     of its kernel and copy intervals) as a share of the wall time, and
-    device time by kernel name.  The profiler's own cost inflates the wall
+    device time by kernel name.  `index_and_bincount_ms` splits PyTorch's
+    index_add_ and bincount kernels by their whole names (template
+    arguments included): the parser's int8 edge marks (ops/parser.py)
+    from any histogram.  The profiler's own cost inflates the wall
     time."""
     import torch
     from torch.autograd import DeviceType
@@ -963,21 +1365,25 @@ def profile_round_trip(device, name: str, data: bytes, params=None,
     if not dev:
         raise AssertionError("the profiler saw no work on the device")
     busy_us, end = 0.0, float("-inf")
-    by_name = {}
+    by_name, index_us = {}, {}
     for e in sorted(dev, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
         busy_us += max(0.0, t - max(s, end))
         end = max(end, t)
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (t - s)
+        if "indexFunc" in e.name or "istogram" in e.name \
+                or "bincount" in e.name:
+            index_us[e.name[:160]] = index_us.get(e.name[:160], 0.0) + t - s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / 1e3
-            for k in ("rans_encode", "rans_decode", "ctx_decode")}
+            for k in ("rans_encode", "rans_decode", "ctx_decode", "hist")}
     return {"phase": "profile", "path": name, "launches": launches,
             "wall_ms": wall_ms,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "device_events": len(dev),
             "top_device_ms": {k: v / 1e3 for k, v in top},
+            "index_and_bincount_ms": {k: v / 1e3 for k, v in index_us.items()},
             "kernel_device_ms": ours,
             "kernel_share_of_busy": {k: v / (busy_us / 1e3)
                                      for k, v in ours.items()}}
@@ -1070,7 +1476,7 @@ def semi_mode0_phase(device, data: bytes):
     equal to the port's archive of it on the CPU."""
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.io.chunker import FastqChunker
-    kern = ("rans_encode", "rans_decode", "ctx_decode")
+    kern = ("rans_encode", "rans_decode", "ctx_decode", "hist")
     res = round_trip(device, "semi_mode0", data, None, kern,
                      keep_archive=True)
     archive = res.pop("archive")
@@ -1147,7 +1553,7 @@ def colour_phase(device, big: bytes):
     its lossy fixed point) and -c."""
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.config import InputParameters
-    kern = ("rans_encode", "ctx_decode")
+    kern = ("rans_encode", "ctx_decode", "hist")
     runs = []
     res = round_trip(device, "colour_m1_64MB", big, m1_params(64 * MB),
                      kern)
@@ -1215,8 +1621,9 @@ def record_api_phase(device, m1_data: bytes, m1_archive: bytes,
     out["launches"] = RK.launch_counts()
     if got != recs:
         raise AssertionError("record API: records read back differ")
-    if not (out["launches"]["rans_encode"] and out["launches"]["rans_decode"]):
-        raise AssertionError("record API: K1 or K2 was not launched")
+    if not (out["launches"]["rans_encode"] and out["launches"]["rans_decode"]
+            and out["launches"]["hist"]):
+        raise AssertionError("record API: K1, K2 or K5 was not launched")
     out.update(records=len(recs), write_s=t1 - t0, read_s=t2 - t1,
                archive_bytes=len(arch.getvalue()))
 
@@ -1231,7 +1638,8 @@ def record_api_phase(device, m1_data: bytes, m1_archive: bytes,
         got = b"".join(r.to_bytes() for r in a.read_records(lo, hi))
     t1 = time.perf_counter()
     range_launches = RK.launch_counts()
-    if got != want or not range_launches["ctx_decode"]:
+    if got != want or not (range_launches["ctx_decode"]
+                           and range_launches["hist"]):
         raise AssertionError("read_records across the block boundary "
                              "differs from the input's records")
     tmp = os.path.join(ROOT, "build", "chip_smoke")
@@ -1415,14 +1823,14 @@ def mesh_phase(device, semi: bytes, semi_archive: bytes, umi: bytes,
     out = {"phase": "mesh", "nvidia_smi": card_info(),
            "dryrun_s": time.perf_counter() - t0}
     runs = [_mesh_run(device, devices, "semi_64MB", semi, semi_archive,
-                      ("rans_encode", "rans_decode"))]
+                      ("rans_encode", "rans_decode", "hist"))]
     if runs[0]["compress_batches"] != 4 or \
             runs[0]["decompress_batches"] != 4:
         raise AssertionError(f"mesh: the SEMI file took "
                              f"{runs[0]['compress_batches']} batches, not 4")
     runs.append(_mesh_run(device, devices, "semi_mode0_64MB", umi,
                           umi_archive, ("rans_encode", "rans_decode",
-                                        "ctx_decode")))
+                                        "ctx_decode", "hist")))
     if runs[1]["decompress_mesh_path"] != 1 or \
             runs[1]["tag_section_decodes"] != runs[1]["title_modes"].count(0):
         raise AssertionError("mesh: a mode-0 blob's tag section was decoded "
@@ -1454,10 +1862,12 @@ def _distributed_child(argv) -> int:
     params.fastq_block_size_bytes = int(block)
     RK.reset_launch_counts()
     t0 = time.perf_counter()
-    DsrcModule(params, device=card).compress(src, dst, distributed=True)
-    torch.cuda.synchronize()
+    with HistPlainCheck() as hist_check:
+        DsrcModule(params, device=card).compress(src, dst, distributed=True)
+        torch.cuda.synchronize()
     emit({"rank": int(rank), "compress_s": time.perf_counter() - t0,
-          "launches": RK.launch_counts()})
+          "launches": RK.launch_counts(),
+          "hist_checked": hist_check.total()})
     dist.destroy_process_group()
     return 0
 
@@ -1528,14 +1938,22 @@ def distributed_run(device, name: str, data: bytes, one_archive: bytes,
                              f"decompress to the input")
     launches = {k: sum(c["launches"][k] for c in children)
                 for k in children[0]["launches"]}
-    if launches["rans_encode"] == 0:
-        raise AssertionError(f"distributed {name}: K1 was not launched")
+    hist_checked = sum(c["hist_checked"] for c in children)
+    if hist_checked != launches["hist"]:
+        raise AssertionError(f"distributed {name}: {hist_checked} of "
+                             f"{launches['hist']} K5 launches held to the "
+                             f"plain version")
+    for k in ("rans_encode", "hist"):
+        if launches[k] == 0:
+            raise AssertionError(f"distributed {name}: kernel {k} was not "
+                                 f"launched")
     return {"path": name, "backend": backend, "processes": world,
             "input_bytes": len(data),
             "equals_single_process_archive": True, "wall_s": wall,
             "MBps": len(data) / MB / wall,
             "child_compress_s": [c["compress_s"] for c in children],
-            "decompress_s": time.perf_counter() - t1, "launches": launches}
+            "decompress_s": time.perf_counter() - t1, "launches": launches,
+            "hist_checked": hist_checked}
 
 
 def distributed_phase(device, semi: bytes, semi_archive: bytes, big: bytes,
@@ -1712,7 +2130,7 @@ def m2_phase(device, data: bytes, m1=None) -> dict:
     from dsrc_tpu_torch.io.chunker import FastqChunker
     res = cli_round_trip(device, "m2", data, ["-m2"])
     archive = res.pop("archive")
-    for k in ("rans_encode", "ctx_decode"):
+    for k in ("rans_encode", "ctx_decode", "hist"):
         if res["launches"][k] == 0:
             raise AssertionError(f"m2: kernel {k} was not launched on the "
                                  f"-m2 path")
@@ -1814,7 +2232,7 @@ def b1024_block(device, block: bytes) -> dict:
     if text.tobytes() != block:
         raise AssertionError("b1024: the block's round trip is not "
                              "byte-exact")
-    for k in ("rans_encode", "ctx_decode"):
+    for k in ("rans_encode", "ctx_decode", "hist"):
         if out["launches"][k] == 0:
             raise AssertionError(f"b1024: kernel {k} was not launched")
     out.update(archive_bytes=len(blob), ratio=len(block) / len(blob),
@@ -1852,7 +2270,7 @@ def b1024_phase(device, m2_data: bytes) -> dict:
                 f"memory a byte of capacity, over {B1024_BYTES_PER_CAP}")
     res = cli_round_trip(device, "b1024", data, ["-b1024", "-d2", "-q2"])
     del res["archive"], data
-    for k in ("rans_encode", "ctx_decode"):
+    for k in ("rans_encode", "ctx_decode", "hist"):
         if res["launches"][k] == 0:
             raise AssertionError(f"b1024: kernel {k} was not launched on "
                                  f"the CLI path")
@@ -1888,8 +2306,12 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = card_info()
+    from dsrc_tpu_torch.utils import native
+    # whether native/libdsrc_host.so (built by `make -C native`, not here)
+    # or its numpy fallbacks serve the host's stages in this run
     emit({"phase": "card", "nvidia_smi": smi, "torch_name": kind,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "native_host_library": native.available()})
 
     t0 = time.perf_counter()
     cuda_build.load_all()
@@ -1930,7 +2352,11 @@ def main() -> int:
         [records["rans_encode"]["max_abs_err"]]
         + [r["k1_max_abs_err"] for r in recs8.values()])
 
-    launches = {"rans_encode": 0, "rans_decode": 0, "ctx_decode": 0}
+    launches = {"rans_encode": 0, "rans_decode": 0, "ctx_decode": 0,
+                "hist": 0}
+    # phases 4-13 run with every K5 launch held to its plain version on its
+    # own inputs (the distributed children hold their own)
+    hist_check = HistPlainCheck().__enter__()
     # a little under 8 and 2 whole 8 MB blocks: the chunker cuts each block
     # at a record boundary
     semi = fastq_of_size(64 * MB - 4096, seed=7, fixed_width=False)
@@ -1955,6 +2381,13 @@ def main() -> int:
     m2 = m2_phase(device, m2_data, m1=(big, runs[0]["ratio"]))
     b1024 = b1024_phase(device, m2_data)
     del m2_data
+    hist_check.__exit__(None, None, None)
+    if hist_check.failures:
+        raise AssertionError(f"K5 differs from its plain version on the "
+                             f"main paths: {hist_check.failures[:5]}")
+    torch.cuda.empty_cache()
+    hist = hist_phase(device, block64, FastqChunker(
+        io.BytesIO(semi), 8 * MB).next_block().tobytes(), mode0_block)
     for r in ([res, res_u] + runs + mode0_runs + colour_runs + [rec_api]
               + mesh["runs"] + dist_runs + [mesh.get("all_cards"), m2,
                                             b1024, b1024["one_block"]]):
@@ -1962,13 +2395,26 @@ def main() -> int:
             launches[k] += n
     for k, n in rec_api["range_launches"].items():
         launches[k] += n
+    # every counted K5 launch was checked; the check also saw the card's
+    # uncounted ones (the distributed archives' decompress)
+    hist_checked = hist_check.total() + sum(r["hist_checked"]
+                                            for r in dist_runs)
+    if hist_checked < launches["hist"]:
+        raise AssertionError(f"{hist_checked} K5 launches held to the plain "
+                             f"version, fewer than the {launches['hist']} "
+                             f"counted")
+    emit({"phase": "kernels", "stream": "hist_main_paths",
+          "launches": launches["hist"], "checked": hist_checked,
+          "checked_by_form_and_bins": hist_check.checked,
+          "max_abs_err": 0})
     emit(golden(device))
     emit(profile_round_trip(device, "semi", semi))
     emit(profile_round_trip(device, "semi_mode0_8MB_block", mode0_block,
                             None, ("rans_encode", "rans_decode",
-                                   "ctx_decode")))
+                                   "ctx_decode", "hist")))
     emit(profile_round_trip(device, "generic_m1_64MB_block", block64,
-                            m1_params(64 * MB), ("rans_encode", "ctx_decode")))
+                            m1_params(64 * MB),
+                            ("rans_encode", "ctx_decode", "hist")))
 
     records["rans_encode"]["max_abs_err"] = max(
         [records["rans_encode"]["max_abs_err"]]
@@ -1986,6 +2432,13 @@ def main() -> int:
                (("8MB", recs8), ("64MB", recs64), ("8MB_colour", colour_recs))
                for k, r in recs.items()},
         chain_floor_ms=q64["k3_chain_floor_ms"], m2_shapes=m2_lines)
+    m1h = hist["m1_64MB"]
+    hist_blocks = ("m1_64MB", "semi_8MB", "semi_mode0_8MB")
+    records["hist"] = dict(
+        max_abs_err=max([hist["edge_max_abs_err"]]
+                        + [hist[k]["max_abs_err"] for k in hist_blocks]),
+        ms=m1h["ms"], plain_ms=m1h["plain_ms"], bound_ms=m1h["bound_ms"],
+        bound_by=m1h["bound_by"], library_ms=m1h["library_ms"])
     records["a19_decode"] = dict(
         max_abs_err=a19["k2_max_abs_err"], ms=a19["ms"],
         plain_ms=a19["plain_ms"], bound_ms=a19["bound_ms"],
@@ -1994,19 +2447,35 @@ def main() -> int:
     replaces = {"rans_encode": "dsrc_tpu/ops/rans_pallas.py:73",
                 "rans_decode": "dsrc_tpu/ops/rans_pallas.py:250",
                 "ctx_decode": "dsrc_tpu/ops/ctx.py:160",
-                "a19_decode": "dsrc_tpu/ops/rans.py:305"}
+                "a19_decode": "dsrc_tpu/ops/rans.py:305",
+                "hist": "dsrc_tpu/ops/ctx.py:134 (_hist_mxu) and "
+                        "dsrc_tpu/parallel/uniform_pipeline.py:183 "
+                        "(_pos_hist)"}
     sources = {"rans_encode": "dsrc_tpu_torch/csrc/rans_enc.cu",
                "rans_decode": "dsrc_tpu_torch/csrc/rans_dec.cu",
                "ctx_decode": "dsrc_tpu_torch/csrc/ctx_dec.cu",
-               "a19_decode": "dsrc_tpu_torch/csrc/rans_dec.cu"}
+               "a19_decode": "dsrc_tpu_torch/csrc/rans_dec.cu",
+               "hist": "dsrc_tpu_torch/csrc/hist.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=records[k]["max_abs_err"],
                     ms=records[k]["ms"], plain_ms=records[k]["plain_ms"],
                     bound_ms=records[k]["bound_ms"],
-                    bound_by=records[k]["bound_by"], library_ms=None)
+                    bound_by=records[k]["bound_by"],
+                    library_ms=records[k].get("library_ms"))
                for k in ("rans_encode", "rans_decode", "ctx_decode",
-                         "a19_decode")]
+                         "a19_decode", "hist")]
+    # K5: the sums over the calls of one 64 MB -m1 block's round trip;
+    # device_ms with the host left out, bincount beside index_add_; the
+    # main paths' launches held to the plain version (all of them)
+    kernels[4].update(device_ms=m1h["device_ms"],
+                      bincount_ms=m1h["bincount_ms"], calls=m1h["calls"],
+                      per_block={k: {f: hist[k][f] for f in (
+                          "calls", "elements", "ms", "device_ms", "plain_ms",
+                          "library_ms", "bincount_ms", "bound_ms")}
+                          for k in hist_blocks},
+                      plain_checked_launches=hist_checked,
+                      route_crossover_per_bin=hist["route_sweep"])
     kernels[2].update(table_routes=records["ctx_decode"]["route"],
                       chain_floor_ms=records["ctx_decode"]["chain_floor_ms"],
                       m2_shapes=records["ctx_decode"]["m2_shapes"])

@@ -11,8 +11,8 @@ output.  No table is transmitted.
   decode: per band, the table rebuilt on the device from the histogram,
           then one K3 launch (ops/ctx_kernels.ctx_decode_band)
 
-Histograms are integer index_add_ counts of the int32 bin ids ctx * A +
-sym (the reference's int8 matmul histogram counts the same).  The
+Histograms are K5's integer counts (ops/hist_kernels) of the bin ids
+ctx * A + sym (the reference's int8 matmul histogram counts the same).  The
 geometry (stream_cap, pick_num_lanes, band_edges) is a pure function of
 the transmitted symbol count, so both sides derive it.  The reference's
 hashed contexts (hash_mul) are used by no codec and are not ported.
@@ -26,6 +26,7 @@ import torch
 from ..config import DsrcException
 from .ctx_kernels import (MODE_HISTORY, MODE_PRECOMPUTED, CtxMode,
                           ctx_decode_band)
+from .hist_kernels import hist_count, hist_count_ctx
 from .rans import (cum_from_freqs, lane_active, lane_lengths, lane_merge,
                    lane_split, quantize_counts)
 from .rans_kernels import rans_encode_from_freqs
@@ -108,15 +109,6 @@ def _in_range(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x >= 0) & (x < n)
 
 
-def _count(hist: torch.Tensor, ids: torch.Tensor,
-           keep: torch.Tensor) -> None:
-    """hist[:-1] += counts of the kept ids (int32, overwritten); the last
-    slot of hist takes the others."""
-    ids.masked_fill_(~keep, hist.shape[0] - 1)
-    hist.index_add_(0, ids.reshape(-1), torch.ones(
-        1, dtype=hist.dtype, device=hist.device).expand(ids.numel()))
-
-
 def ctx_models(lanes: torch.Tensor, active: torch.Tensor, ctx: torch.Tensor,
                num_ctx: int, nsym: int, edges: Tuple[int, ...]):
     """Every step's (freq, cum) [T, L] int32 under its band's table, the
@@ -152,7 +144,10 @@ def ctx_models(lanes: torch.Tensor, active: torch.Tensor, ctx: torch.Tensor,
                                    out=out[t0:t1].view(-1))
                 out[t0:t1].masked_fill_(~ok, 0)
             if b + 2 < len(edges):
-                _count(hist, flat, ok.logical_and_(active[t0:t1]))
+                # ok follows the lanes' (transposed) layout; K5 reads the
+                # mask in the row-major layout of flat
+                hist_count(hist, flat,
+                           ok.logical_and_(active[t0:t1]).contiguous())
     return freq, cum
 
 
@@ -194,7 +189,6 @@ def decode_ctx_lanes(payload: torch.Tensor, states: torch.Tensor,
         aux = aux.to(torch.int32).contiguous()
     nbins = num_ctx * nsym
     hist = torch.zeros(nbins + 1, dtype=torch.int64, device=dev)
-    steps = torch.arange(t_steps, dtype=torch.int32, device=dev)
     for b in range(len(edges) - 1):
         t0, t1 = edges[b], edges[b + 1]
         cum = cum_from_freqs(quantize_counts(
@@ -202,8 +196,7 @@ def decode_ctx_lanes(payload: torch.Tensor, states: torch.Tensor,
         ctx_decode_band(payload, x, wptr, carry, lens, cum, aux, osym, octx,
                         t0, t1, mode)
         if b + 2 < len(edges):
-            _count(hist, octx[:, t0:t1] * nsym + osym[:, t0:t1],
-                   steps[None, t0:t1] < lens[:, None])
+            hist_count_ctx(hist, octx, osym, nsym, lens, t0, t1)
     return osym.T
 
 

@@ -29,7 +29,7 @@ from ..config import DsrcException
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dsrc_tpu_torch")
-SOURCES = ("rans_enc", "rans_dec", "ctx_dec")
+SOURCES = ("rans_enc", "rans_dec", "ctx_dec", "hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -107,11 +107,16 @@ _REGS = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
 
 
+# builtin types that name a template argument (the Itanium ABI's codes)
+_TYPES = {"a": "int8_t", "h": "uint8_t", "s": "int16_t", "t": "uint16_t",
+          "i": "int32_t", "j": "uint32_t", "l": "int64_t", "m": "uint64_t"}
+
+
 def kernel_name(mangled: str) -> str:
     """'_ZN44_GLOBAL__N__7ef3696d_11_rans_dec_cu_8f53b51718rans_decode_kernel
     ILi2EEEv...' -> 'rans_decode_kernel<2>': the last length-prefixed name
-    of the nested name, and its int and bool template arguments ('Lin1E'
-    is -1, 'Lb1E' true)."""
+    of the nested name, and its int, bool and builtin-type template
+    arguments ('Lin1E' is -1, 'Lb1E' true, 'h' uint8_t)."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -124,12 +129,12 @@ def kernel_name(mangled: str) -> str:
         name = mangled[pos:pos + int(d.group())]
         pos += int(d.group())
     if mangled[pos:pos + 1] == "I":
-        args = re.findall(r"L([ib])(n?)(\d+)E", mangled[pos:].split("EE")[0]
-                          + "E")
+        args = re.findall(r"L([ib])(n?)(\d+)E|([ahijlmst])",
+                          mangled[pos + 1:].split("EE")[0] + "E")
         name += "<" + ",".join(
-            ("-" if neg else "") + num if kind == "i" else
-            ("true" if num == "1" else "false")
-            for kind, neg, num in args) + ">"
+            _TYPES[ty] if ty else ("-" if neg else "") + num if kind == "i"
+            else ("true" if num == "1" else "false")
+            for kind, neg, num, ty in args) + ">"
     return name
 
 

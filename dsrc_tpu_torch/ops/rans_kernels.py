@@ -59,7 +59,7 @@ class LaunchCounter:
 
 LAUNCHES: Dict[str, LaunchCounter] = {
     "rans_encode": LaunchCounter(), "rans_decode": LaunchCounter(),
-    "ctx_decode": LaunchCounter()}
+    "ctx_decode": LaunchCounter(), "hist": LaunchCounter()}
 
 
 def reset_launch_counts() -> None:
@@ -82,7 +82,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise DsrcException(f"{name} must be contiguous")
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points (csrc/*.cu): library, argument types; each returns the
 # cudaError_t of its launch
 _SIGNATURES = {
@@ -93,6 +93,8 @@ _SIGNATURES = {
     "dsrc_ctx_decode": ("ctx_dec", (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _P, _P, _I, _P)),
+    "dsrc_hist": ("hist", (_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P, _I, _P)),
 }
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .hist_kernels import hist_count
+
 DNA_CHARS = b"ACGTNRWSKMDVHBYXU.-"
 DNA_NSYM = len(DNA_CHARS)  # 19
 COLOR_CHARS = b"0123."      # SOLiD colour-space digits (+ unknown)
@@ -201,15 +203,8 @@ def segment_max(values: torch.Tensor, seg_ids: torch.Tensor,
 def histogram(values: torch.Tensor, nsym: int,
               active: torch.Tensor = None) -> torch.Tensor:
     """Counts (int64) of the values in [0, nsym) (of the active ones, when
-    a mask is given), by one index_add_ of int32 bin ids."""
-    ids = values.to(torch.int32, copy=True)
-    wide = values if values.dtype == torch.int64 else ids
-    bad = (wide < 0) | (wide >= nsym)
-    if active is not None:
-        bad |= ~active
-    ids.masked_fill_(bad, nsym)
-    del bad
+    a mask is given): K5's flat form (ops/hist_kernels.hist_count)."""
     out = torch.zeros(nsym + 1, dtype=torch.int64, device=values.device)
-    out.index_add_(0, ids.reshape(-1), torch.ones(
-        1, dtype=torch.int64, device=values.device).expand(ids.numel()))
+    hist_count(out, values.contiguous(),
+               None if active is None else active.contiguous())
     return out[:nsym]

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.hist_kernels import pos_hist
 from ..ops.rans import cum_from_freqs, quantize_counts
 from ..ops.rans_kernels import rans_decode, rans_encode_from_freqs
 
@@ -103,16 +104,6 @@ def _lookup_packed(mat: torch.Tensor, table: torch.Tensor,
     return torch.gather(packed_tab, 1, mat.t().to(torch.int64)).t()
 
 
-def _pos_hist(mat: torch.Tensor, num_rec: int, nsym: int) -> torch.Tensor:
-    """Per-position histograms [P, A] int64 of the first num_rec rows of
-    mat [Rpad, P] (values in [0, nsym)): one integer bincount."""
-    p = mat.shape[1]
-    keys = mat[:num_rec].to(torch.int64) + \
-        torch.arange(p, device=mat.device, dtype=torch.int64) * nsym
-    return torch.bincount(keys.reshape(-1), minlength=p * nsym) \
-        .reshape(p, nsym)
-
-
 def qual_delta(mat: torch.Tensor, nsym: int) -> torch.Tensor:
     """Horizontal within-read delta: sym[:, i] = (q[:, i] - q[:, i-1]) mod
     nsym (column 0 literal; floor modulo)."""
@@ -145,7 +136,7 @@ def positional_models(mat: torch.Tensor, num_rec: int, nsym: int,
     ll = rpad // group
     t_steps = group * p
     dev = mat.device
-    table = quantize_counts(_pos_hist(mat, num_rec, nsym))
+    table = quantize_counts(pos_hist(mat, num_rec, nsym))
     cumfull = cum_from_freqs(table)
     rows = torch.arange(rpad, dtype=torch.int64, device=dev)
     live = torch.where((rows < num_rec)[:, None], mat,
@@ -310,8 +301,8 @@ def _choose_qual_syms(qual: torch.Tensor, num_rec: int, wr: Wire):
     (symbols [Rpad, P] int32, qual_mode 0-dim int32 tensor)."""
     qsym = torch.clamp(qual, 0, wr.qual_a - 1)
     qd = qual_delta(qsym, wr.qual_a)
-    bits_direct = _pos_entropy_bits(_pos_hist(qsym, num_rec, wr.qual_a))
-    bits_delta = _pos_entropy_bits(_pos_hist(qd, num_rec, wr.qual_a))
+    bits_direct = _pos_entropy_bits(pos_hist(qsym, num_rec, wr.qual_a))
+    bits_delta = _pos_entropy_bits(pos_hist(qd, num_rec, wr.qual_a))
     use_delta = bits_delta < bits_direct
     return torch.where(use_delta, qd, qsym), use_delta.to(torch.int32)
 

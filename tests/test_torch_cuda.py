@@ -1,7 +1,8 @@
-"""Kernels K1 (rANS encode), K2 (rANS decode) and K3 (context-model band
-decode) against their plain PyTorch versions, on an NVIDIA card.  Marked `cuda`: they skip where torch
-sees no CUDA device.  On the card, chip_smoke.py runs the same checks at
-the main path's shapes; run these with
+"""Kernels K1 (rANS encode), K2 (rANS decode), K3 (context-model band
+decode) and K5 (histogram) against their plain PyTorch versions, on an
+NVIDIA card.  Marked `cuda`: they skip where torch sees no CUDA device.
+On the card, chip_smoke.py runs the same checks at the main path's
+shapes; run these with
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -559,3 +560,135 @@ def test_launches_on_a_second_card_keep_the_thread_device():
         raise result["error"]
     assert result["k1"] and result["k2"] and result["k3"]
     assert result["devices"] == (0, 0, 0)
+
+
+# --------------------------------------------------------------------------
+# K5 (histogram)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def k5_route(monkeypatch):
+    """Sets the route of every K5 launch (None: hist_route's choice)."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    return lambda route: monkeypatch.setattr(HK, "_ROUTE", route)
+
+
+def _k5_flat(dev, ids, mask, nbins):
+    """K5's flat form against its plain version on the same card tensors,
+    both added into one histogram that starts non-zero."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
+    mask = None if mask is None else torch.from_numpy(mask).to(dev)
+    start = torch.arange(nbins + 1, dtype=torch.int64, device=dev) % 7
+    got, want = start.clone(), start.clone()
+    before = RK.launch_counts()["hist"]
+    HK.hist_count(got, ids, mask)
+    torch.cuda.synchronize()
+    HK.hist_count_plain(want, ids, mask)
+    assert torch.equal(got[:-1], want[:-1])
+    assert got[-1] == start[-1]              # the kernel leaves scratch be
+    assert RK.launch_counts()["hist"] == before + (ids.numel() > 0)
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32, np.int64])
+def test_k5_flat_every_value_type(cuda, k5_route, route, dtype):
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    lo, hi, nbins = (0, 256, 200) if dtype == np.uint8 else (-40, 9_000,
+                                                             8_500)
+    n = 1_000_003
+    k5_route(route)
+    _k5_flat(cuda, rng.integers(lo, hi, n).astype(dtype),
+             rng.random(n) < 0.75, nbins)
+    _k5_flat(cuda, rng.integers(lo, hi, n).astype(dtype), None, nbins)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_k5_route_boundary(cuda, extra):
+    """HIST_SMEM_BUDGET / 4 bins take the shared route, one more the
+    global one; the default route at each."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    nbins = HK.HIST_SMEM_BUDGET // 4 + extra
+    assert HK.hist_route(nbins) == ("shared", "global")[extra]
+    rng = np.random.default_rng(extra)
+    ids = np.minimum(rng.geometric(2e-5, 1 << 22) - 1, nbins + 3)
+    assert HK.hist_route(nbins, ids.size) == HK.hist_route(nbins)
+    _k5_flat(cuda, ids.astype(np.int32), rng.random(ids.size) < 0.9, nbins)
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("n", [0, 1, 31, 33])
+def test_k5_few_elements(cuda, k5_route, route, n):
+    rng = np.random.default_rng(n)
+    k5_route(route)
+    _k5_flat(cuda, rng.integers(0, 300, n).astype(np.int32),
+             rng.random(n) < 0.5, 300)
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_k5_one_bin_takes_every_element(cuda, k5_route, route):
+    k5_route(route)
+    _k5_flat(cuda, np.full(3_000_000, 4_095, np.int32), None, 4_096)
+    _k5_flat(cuda, np.zeros(3_000_000, np.uint8), None, 5)
+
+
+def test_k5_order7_dna_bins(cuda):
+    """2^24 bins, CTX8 at order 7 (models/dna.py): the global route."""
+    rng = np.random.default_rng(24)
+    ids = np.minimum(rng.geometric(1e-6, 1 << 22) - 1, (1 << 24) + 9)
+    _k5_flat(cuda, ids.astype(np.int32), rng.random(ids.size) < 0.9,
+             1 << 24)
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("p,nsym,dtype", [(100, 64, np.uint8),
+                                          (37, 64, np.int32),
+                                          (1, 19, np.int16),
+                                          (13, 19, np.int64)])
+def test_k5_positional(cuda, k5_route, route, p, nsym, dtype):
+    """P that does not divide the grid's stride (37, 13), P = 1, an
+    alphabet that is no multiple of 8, a view with a row stride past P."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    rng = np.random.default_rng(p)
+    wide = np.minimum(rng.geometric(0.1, (33_537, p + 3)) - 1,
+                      nsym - 1).astype(dtype)
+    mat = torch.from_numpy(wide).to(cuda)[:, :p]
+    k5_route(route)
+    for num_rec in (0, 1, 33_411, 33_537):
+        got = HK.pos_hist(mat, num_rec, nsym)
+        torch.cuda.synchronize()
+        assert torch.equal(got, HK.pos_hist_plain(mat, num_rec, nsym))
+    # a mat of another column stride: K5 counts a copy of its rows
+    cols = mat.T.contiguous().T
+    got = HK.pos_hist(cols, 33_411, nsym)
+    torch.cuda.synchronize()
+    assert torch.equal(got, HK.pos_hist_plain(mat, 33_411, nsym))
+
+
+@pytest.mark.parametrize("num_ctx,nsym,route", [
+    (64, 64, "shared"), (64, 64, "global"), (4096, 64, "global"),
+    (256, 256, "global")])
+def test_k5_context_form(cuda, k5_route, num_ctx, nsym, route):
+    """The decode's band form: contexts clamped, symbols outside [0, A)
+    and steps past a lane's length dropped, band by band."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    from dsrc_tpu_torch.ops.ctx import band_edges
+    nbins = num_ctx * nsym
+    rng = np.random.default_rng(num_ctx + nsym)
+    lanes, t_steps = 2048, 700
+    octx = torch.from_numpy(np.minimum(rng.geometric(
+        0.01, (lanes, t_steps)) - 3, num_ctx + 2).astype(np.int32)).to(cuda)
+    osym = torch.from_numpy(np.minimum(rng.geometric(
+        0.2, (lanes, t_steps)) - 2, nsym).astype(np.int32)).to(cuda)
+    lens = torch.from_numpy(rng.integers(0, t_steps + 1, lanes)
+                            .astype(np.int32)).to(cuda)
+    got = torch.zeros(nbins + 1, dtype=torch.int64, device=cuda)
+    want = got.clone()
+    edges = band_edges(t_steps)
+    k5_route(route)
+    for t0, t1 in zip(edges[:-1], edges[1:]):
+        HK.hist_count_ctx(got, octx, osym, nsym, lens, t0, t1)
+        HK.hist_count_ctx_plain(want, octx, osym, nsym, lens, t0, t1)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:-1], want[:-1])

@@ -315,7 +315,7 @@ def test_histograms_and_quality_mode_choice_match_jax():
     base = np.cumsum(rng.integers(-1, 2, (rpad, p)), axis=1) + 30
     qual = np.clip(base, 0, 63).astype(np.int32)
     h_ref = np.asarray(JUP._pos_hist(jnp.asarray(qual), num_rec, 64))
-    h_got = TUP._pos_hist(t32(qual), num_rec, 64)
+    h_got = TUP.pos_hist(t32(qual), num_rec, 64)
     np.testing.assert_array_equal(h_got.numpy(), h_ref)
     for q in (qual, rng.integers(0, 64, (rpad, p)).astype(np.int32)):
         qs = jnp.asarray(q)
@@ -332,7 +332,7 @@ def test_histograms_and_quality_mode_choice_match_jax():
         np.testing.assert_array_equal(got_syms.numpy(),
                                       np.asarray(ref_syms))
         np.testing.assert_allclose(
-            float(TUP._pos_entropy_bits(TUP._pos_hist(t32(q), num_rec, 64))),
+            float(TUP._pos_entropy_bits(TUP.pos_hist(t32(q), num_rec, 64))),
             bits_direct, rtol=1e-5)
 
 
