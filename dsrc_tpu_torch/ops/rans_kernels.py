@@ -19,7 +19,8 @@ Each launch is made under torch.cuda.device(dev), which gives the calling
 thread back its current CUDA device afterwards (the C entry point sets
 `dev` and does not restore it): the mesh path launches on several cards
 from one thread, and later work that names no card index must not land on
-the last card used.
+the last card used.  K5's entry point (hist_kernels) does the same in C:
+it makes the card current only when it is not, and sets it back.
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise DsrcException(f"{name} must be contiguous")
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points (csrc/*.cu): library, argument types; each returns the
 # cudaError_t of its launch
 _SIGNATURES = {
@@ -93,8 +94,9 @@ _SIGNATURES = {
     "dsrc_ctx_decode": ("ctx_dec", (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _P, _P, _I, _P)),
-    "dsrc_hist": ("hist", (_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _P, _I, _P)),
+    # one packed argument struct (hist_kernels._ARGS), which ctypes
+    # passes for less host time than 17 converted arguments
+    "dsrc_hist": ("hist", (ctypes.c_char_p,)),
 }
 
 

@@ -573,13 +573,21 @@ def k5_route(monkeypatch):
     return lambda route: monkeypatch.setattr(HK, "_ROUTE", route)
 
 
-def _k5_flat(dev, ids, mask, nbins):
+def _k5_flat(dev, ids, mask, nbins, cut=(0, 0), counted=True):
     """K5's flat form against its plain version on the same card tensors,
-    both added into one histogram that starts non-zero."""
+    both added into one histogram that starts non-zero; cut: the ids and
+    the mask start that many elements past their aligned bases (the
+    arrays hold one more element, and the call takes as many ids);
+    counted: the launch adds one to LAUNCHES["hist"] (k5_variants.py's
+    launches add none)."""
     from dsrc_tpu_torch.ops import hist_kernels as HK
     from dsrc_tpu_torch.ops import rans_kernels as RK
     ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
     mask = None if mask is None else torch.from_numpy(mask).to(dev)
+    if cut != (0, 0):
+        n = ids.numel() - 1
+        ids = ids[cut[0]:cut[0] + n]
+        mask = None if mask is None else mask[cut[1]:cut[1] + n]
     start = torch.arange(nbins + 1, dtype=torch.int64, device=dev) % 7
     got, want = start.clone(), start.clone()
     before = RK.launch_counts()["hist"]
@@ -588,20 +596,28 @@ def _k5_flat(dev, ids, mask, nbins):
     HK.hist_count_plain(want, ids, mask)
     assert torch.equal(got[:-1], want[:-1])
     assert got[-1] == start[-1]              # the kernel leaves scratch be
-    assert RK.launch_counts()["hist"] == before + (ids.numel() > 0)
+    assert RK.launch_counts()["hist"] == before + (counted
+                                                   and ids.numel() > 0)
 
 
 @pytest.mark.parametrize("route", ["shared", "global"])
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32, np.int64])
 def test_k5_flat_every_value_type(cuda, k5_route, route, dtype):
+    """Masked and not, from an aligned base and from one element past it
+    (the mask's address agreeing: vector reads after a scalar head;
+    disagreeing: element by element); on the global route also at a
+    width too wide for the shared one."""
     rng = np.random.default_rng(np.dtype(dtype).itemsize)
-    lo, hi, nbins = (0, 256, 200) if dtype == np.uint8 else (-40, 9_000,
-                                                             8_500)
     n = 1_000_003
     k5_route(route)
-    _k5_flat(cuda, rng.integers(lo, hi, n).astype(dtype),
-             rng.random(n) < 0.75, nbins)
-    _k5_flat(cuda, rng.integers(lo, hi, n).astype(dtype), None, nbins)
+    for nbins in (200, 8_500) + ((100_000,) if route == "global" else ()):
+        lo, hi = (0, 256) if dtype == np.uint8 else (-40, nbins + 500)
+        ids = rng.integers(lo, hi, n + 1).astype(dtype)
+        keep = rng.random(n + 1) < 0.75
+        _k5_flat(cuda, ids[:n], keep[:n], nbins)
+        _k5_flat(cuda, ids[:n], None, nbins)
+        for cut in ((1, 1), (1, 0), (0, 1)):
+            _k5_flat(cuda, ids, keep, nbins, cut)
 
 
 @pytest.mark.parametrize("extra", [0, 1])
@@ -618,19 +634,28 @@ def test_k5_route_boundary(cuda, extra):
 
 
 @pytest.mark.parametrize("route", ["shared", "global"])
-@pytest.mark.parametrize("n", [0, 1, 31, 33])
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 31, 33])
 def test_k5_few_elements(cuda, k5_route, route, n):
     rng = np.random.default_rng(n)
     k5_route(route)
     _k5_flat(cuda, rng.integers(0, 300, n).astype(np.int32),
              rng.random(n) < 0.5, 300)
+    _k5_flat(cuda, rng.integers(0, 32, n).astype(np.uint8), None, 32)
 
 
 @pytest.mark.parametrize("route", ["shared", "global"])
 def test_k5_one_bin_takes_every_element(cuda, k5_route, route):
+    """Every element in one bin (the first, a middle one, the last), and
+    a mask that drops every element."""
     k5_route(route)
-    _k5_flat(cuda, np.full(3_000_000, 4_095, np.int32), None, 4_096)
     _k5_flat(cuda, np.zeros(3_000_000, np.uint8), None, 5)
+    for nbins in (32, 256, 4096) + ((1 << 18,) if route == "global"
+                                    else ()):
+        for b in (nbins // 3, nbins - 1):
+            _k5_flat(cuda, np.full(3_000_000, b, np.int32), None, nbins)
+        _k5_flat(cuda, np.full(2_000_001, nbins - 1, np.uint8 if nbins <= 256
+                               else np.int32), np.zeros(2_000_001, bool),
+                 nbins)
 
 
 def test_k5_order7_dna_bins(cuda):
@@ -645,7 +670,8 @@ def test_k5_order7_dna_bins(cuda):
 @pytest.mark.parametrize("p,nsym,dtype", [(100, 64, np.uint8),
                                           (37, 64, np.int32),
                                           (1, 19, np.int16),
-                                          (13, 19, np.int64)])
+                                          (13, 19, np.int64),
+                                          (4, 64, np.uint8)])
 def test_k5_positional(cuda, k5_route, route, p, nsym, dtype):
     """P that does not divide the grid's stride (37, 13), P = 1, an
     alphabet that is no multiple of 8, a view with a row stride past P."""
@@ -666,17 +692,20 @@ def test_k5_positional(cuda, k5_route, route, p, nsym, dtype):
     assert torch.equal(got, HK.pos_hist_plain(mat, 33_411, nsym))
 
 
+@pytest.mark.parametrize("t_steps", [700, 301])
 @pytest.mark.parametrize("num_ctx,nsym,route", [
     (64, 64, "shared"), (64, 64, "global"), (4096, 64, "global"),
-    (256, 256, "global")])
-def test_k5_context_form(cuda, k5_route, num_ctx, nsym, route):
+    (256, 256, "global"), (40, 19, "shared"), (3059, 19, "global")])
+def test_k5_context_form(cuda, k5_route, num_ctx, nsym, route, t_steps):
     """The decode's band form: contexts clamped, symbols outside [0, A)
-    and steps past a lane's length dropped, band by band."""
+    and steps past a lane's length dropped, at an odd first column and
+    band by band (with T = 700 the shared route reads the bands 4 steps
+    at a time; with T = 301 it cannot)."""
     from dsrc_tpu_torch.ops import hist_kernels as HK
     from dsrc_tpu_torch.ops.ctx import band_edges
     nbins = num_ctx * nsym
     rng = np.random.default_rng(num_ctx + nsym)
-    lanes, t_steps = 2048, 700
+    lanes = 2048
     octx = torch.from_numpy(np.minimum(rng.geometric(
         0.01, (lanes, t_steps)) - 3, num_ctx + 2).astype(np.int32)).to(cuda)
     osym = torch.from_numpy(np.minimum(rng.geometric(
@@ -687,8 +716,145 @@ def test_k5_context_form(cuda, k5_route, num_ctx, nsym, route):
     want = got.clone()
     edges = band_edges(t_steps)
     k5_route(route)
-    for t0, t1 in zip(edges[:-1], edges[1:]):
+    for t0, t1 in [(37, 294)] + list(zip(edges[:-1], edges[1:])):
         HK.hist_count_ctx(got, octx, osym, nsym, lens, t0, t1)
         HK.hist_count_ctx_plain(want, octx, osym, nsym, lens, t0, t1)
         torch.cuda.synchronize()
-        assert torch.equal(got[:-1], want[:-1])
+        assert torch.equal(got[:-1], want[:-1]), (t0, t1)
+
+
+@pytest.mark.parametrize("nbins", [58_113, 131_072, 262_144])
+@pytest.mark.parametrize("per_bin", [0.125, 16])
+def test_k5_quality_context_widths(cuda, k5_route, nbins, per_bin):
+    """The quality contexts' widths, sparse and dense, skewed ids (some
+    out of range), on the global route and on hist_route's choice."""
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    assert HK.hist_route(nbins, int(per_bin * nbins)) == "global"
+    rng = np.random.default_rng(nbins + int(per_bin * 8))
+    n = int(per_bin * nbins)
+    ids = np.minimum(rng.geometric(16 / nbins, n) - 1, nbins + 3)
+    keep = rng.random(n) < 0.9
+    for route in ("global", None):
+        k5_route(route)
+        _k5_flat(cuda, ids.astype(np.int32), keep, nbins)
+
+
+@pytest.mark.parametrize("variant", ["narrow", "cluster"])
+def test_k5_variants_equal_plain(cuda, k5_route, variant):
+    """k5_variants.py's alternatives, built from hist.cu, count what the
+    plain version counts: flat at an aligned base and one past it, few
+    elements, one bin, a context band at an odd first column and by
+    quads, positional rows; the cluster at the quality contexts'
+    2^18 bins.  A width the variant cannot hold raises before any
+    launch."""
+    import k5_variants as KV
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    out = os.path.join(KV.ROOT, "build", "k5_variants")
+    proc = KV.build(out)
+    log = proc.communicate()[0].decode(errors="replace")
+    assert proc.returncode == 0, log
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(HK, "_launch", KV.variant_launch(
+        os.path.join(out, "libk5_variants.so"), HK._launch))
+    try:
+        k5_route(variant)
+        rng = np.random.default_rng(len(variant))
+        widths = (32, 256) + ((1 << 18,) if variant == "cluster" else ())
+        for nbins in widths:
+            ids = rng.integers(-3, nbins + 3, 1_000_018).astype(np.int32)
+            keep = rng.random(1_000_018) < 0.8
+            _k5_flat(cuda, ids[:-1], keep[:-1], nbins, counted=False)
+            _k5_flat(cuda, ids, keep, nbins, (1, 1), counted=False)
+            _k5_flat(cuda, ids[:17], None, nbins, counted=False)
+            _k5_flat(cuda, np.full(2_000_000, nbins - 1, np.int32), None,
+                     nbins, counted=False)
+        num_ctx, nsym = (4096, 64) if variant == "cluster" else (4, 8)
+        octx = torch.from_numpy(rng.integers(-2, num_ctx + 2, (2048, 304))
+                                .astype(np.int32)).to(cuda)
+        osym = torch.from_numpy(rng.integers(-1, nsym + 1, (2048, 304))
+                                .astype(np.int32)).to(cuda)
+        lens = torch.from_numpy(rng.integers(0, 305, 2048)
+                                .astype(np.int32)).to(cuda)
+        for t0, t1 in ((37, 294), (64, 128)):
+            got = torch.zeros(num_ctx * nsym + 1, dtype=torch.int64,
+                              device=cuda)
+            want = got.clone()
+            HK.hist_count_ctx(got, octx, osym, nsym, lens, t0, t1)
+            HK.hist_count_ctx_plain(want, octx, osym, nsym, lens, t0, t1)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:-1], want[:-1]), (t0, t1)
+        mat = torch.from_numpy(rng.integers(0, 19, (33_537, 40))
+                               .astype(np.int16)).to(cuda)[:, :37]
+        assert torch.equal(HK.pos_hist(mat, 33_411, 19),
+                           HK.pos_hist_plain(mat, 33_411, 19))
+        wide = 1 + (KV.CLUSTER_MAX << 15 if variant == "cluster"
+                    else HK.HIST_SMEM_BUDGET // 4 // KV.NARROW_COPIES)
+        with pytest.raises(ValueError):
+            HK.hist_count(torch.zeros(wide + 1, dtype=torch.int64,
+                                      device=cuda),
+                          torch.zeros(100, dtype=torch.int32, device=cuda))
+    finally:
+        monkey.undo()
+
+
+def test_k5_forced_route_that_cannot_hold_raises(cuda, k5_route):
+    """A route forced past what it holds, or one K5 does not have (the
+    names of k5_variants.py's alternatives), raises before any launch."""
+    from dsrc_tpu_torch.config import DsrcException
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    ids = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    before = RK.launch_counts()["hist"]
+    for route, nbins in (("narrow", 100), ("shared", 60_000),
+                         ("cluster", 100)):
+        k5_route(route)
+        hist = torch.zeros(nbins + 1, dtype=torch.int64, device=cuda)
+        with pytest.raises(DsrcException):
+            HK.hist_count(hist, ids)
+    assert RK.launch_counts()["hist"] == before
+
+
+def test_k5_launches_from_many_threads(cuda):
+    """The C entry point keeps what it asks of the card (SM count,
+    occupancy a kernel and shared-memory size) under a lock: 12 threads
+    launching at once on widths no launch has used yet, each on its own
+    stream, count what the plain version counts, and every launch is
+    counted once."""
+    import sys
+    import threading
+    from dsrc_tpu_torch.ops import hist_kernels as HK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    rng = np.random.default_rng(12)
+    widths = [3_000 + 37 * k for k in range(12)]   # shared, 20 a bin
+    ids = [torch.from_numpy(rng.integers(-5, w + 5, 20 * w).astype(np.int32))
+           .to(cuda) for w in widths]
+    got = [torch.zeros(w + 1, dtype=torch.int64, device=cuda)
+           for w in widths]
+    errors, before = [], RK.launch_counts()["hist"]
+
+    def work(k):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(25):
+                    HK.hist_count(got[k], ids[k])
+                torch.cuda.current_stream(cuda).synchronize()
+        except BaseException as e:     # noqa: BLE001 — raised below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(len(widths))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert RK.launch_counts()["hist"] == before + 25 * len(widths)
+    for k, w in enumerate(widths):
+        want = torch.zeros(w + 1, dtype=torch.int64, device=cuda)
+        HK.hist_count_plain(want, ids[k])
+        assert torch.equal(got[k][:-1], 25 * want[:-1]), w
