@@ -9,8 +9,9 @@ script exits non-zero without printing a result:
   1 card     the card's name and power limit (nvidia-smi), torch's name,
              and whether native/libdsrc_host.so serves the host's stages
              (it is not built here; else its numpy fallbacks do)
-  2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc (in parallel);
-             each kernel's registers, shared memory and spills (ptxas -v)
+  2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc and
+             k4_variants.py's least-step probe (in parallel); each
+             kernel's registers, shared memory and spills (ptxas -v)
   3 kernels  K1 (rANS encode) and K2 (rANS decode) against their plain
              PyTorch versions on the card, exact integer equality, at the
              shapes of the main path's 8 MB blocks: SEMI quality (A=64),
@@ -24,8 +25,14 @@ script exits non-zero without printing a result:
              GENERIC (-m1 settings): K1 and K3 (context-model decode)
              against their plain versions on the quality (K3 mode 2), DNA
              pair (mode 0) and title text (mode 1) streams of one 8 MB
-             block, K3 on every band; A19 (K4, served by K2 at P = 1) on a
-             19-symbol stream, with its chain floor (lane 0 alone).  Then
+             block, K3 on every band.  K4 (A19's order-0 decode) on
+             19-symbol streams at n = 3.3 M (T = 2,048; against its plain
+             version too) and at the DNA stream shapes of a 64 MB -m1 and
+             a 256 MB -m2 block (T = 16,384 and 65,536): equal to the
+             encoded symbols and to K2 at P = 1 (the route that served A19
+             before K4), both timed, with K4's chain floor (lane 0 alone)
+             and its chain bound (T times the least step the card allows,
+             k4_variants.least_step).  Then
              K3's and K1's times per band and per stream at the quality
              and DNA shapes of a 64 MB block, with K3's route (where its
              table rows live) and its chain floor (the warp of lane 0
@@ -57,7 +64,9 @@ script exits non-zero without printing a result:
              file through DsrcModule(device="cuda"); the 8 MB -m1 archive on
              the card equal to the port's archive on the CPU; 8 MB round
              trips at -d0 -q0 on variable-length reads, -l -q2 on 4-level
-             quality, -c, and DNA with more than 8 symbols (A19)
+             quality, -c, and DNA with more than 8 symbols (A19); one 64 MB
+             -m1 block with IUPAC codes in its DNA (A19 at full width), K4
+             launched once for each A19 block
   7 semi_mode0  -m0 on a 64 MB file whose read names carry an 8-base UMI
              (a free-text field: every block SEMI title mode 0, the titles
              through the tag coder, K1 and K3); one 8 MB block's archive on
@@ -173,6 +182,20 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events,
+    no warm-up.  For the plain versions, loops of small PyTorch ops that
+    take long enough for one call to be their time."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_device_ms(fn, reps: int):
@@ -338,7 +361,7 @@ def kernel_checks(device, streams, reps: int):
                 "rans_decode": (lambda: RK.rans_decode(*dargs),
                                 lambda: RK.rans_decode_plain(*dargs)),
             }
-            ms = {k: (time_ms(fn, reps), time_ms(plain, 2),
+            ms = {k: (time_ms(fn, reps), time_once(plain)[1],
                       time_device_ms(fn, reps))
                   for k, (fn, plain) in calls.items()}
         else:
@@ -443,7 +466,7 @@ def oversized_table_check(device) -> int:
 
 
 # --------------------------------------------------------------------------
-# Phase 3, GENERIC: K1 and K3 on the context-model streams, A19 through K2
+# Phase 3, GENERIC: K1 and K3 on the context-model streams, K4 on A19
 # --------------------------------------------------------------------------
 
 def m1_params(block_bytes: int, **kw):
@@ -767,7 +790,7 @@ def ctx_checks(device, streams, shape_name: str, timed: bool,
 
 def k3_plain_ms(rec) -> float:
     """The plain version's time over a whole stream (its band loop, K3
-    replaced by ctx_decode_band_plain), one timed call after a warm-up."""
+    replaced by ctx_decode_band_plain), one timed call."""
     from dsrc_tpu_torch.ops import ctx as C
     from dsrc_tpu_torch.ops import ctx_kernels as CK
     st = rec["stream"]
@@ -782,53 +805,115 @@ def k3_plain_ms(rec) -> float:
                                       st["mode"], st["aux"])
         finally:
             C.ctx_decode_band = saved
-    return time_ms(run, 1)
+    return time_once(run)[1]
 
 
-def a19_check(device, n: int, timed: bool) -> dict:
-    """A19 (K4: K2 at P = 1, group = T) on a 19-symbol stream of n symbols
-    laid out as dna.py lays out a block's DNA: encode through K1, decode
-    through K2 against rans_decode_plain and against the symbols."""
+# A19's streams: (n, name); T = 2,048 at n = 3.3 M, and the T of the DNA
+# stream of a full 64 MB -m1 block (16,384) and a 256 MB -m2 block (65,536)
+A19_SHAPES = ((3_300_000, "a19"), (25_000_000, "a19_m1_64MB"),
+              (100_000_000, "a19_m2_256MB"))
+# integer operations per A19 step: mask, slot-table load, multiply-add,
+# renorm compare, shift/or and select
+A19_OPS_PER_SYM = 6
+
+
+def a19_stream(device, n: int) -> dict:
+    """A 19-symbol stream of n symbols laid out as models/dna.py lays out a
+    block's DNA, drawn on the card (inverse CDF of a Dirichlet(0.7) mix) and
+    encoded through K1 (dna._a19_encode), with its payload left-aligned as
+    a decoded block holds it (ops/streams.deserialize_rans)."""
     import numpy as np
     import torch
     from dsrc_tpu_torch.models import dna as DNA
     from dsrc_tpu_torch.ops import ctx as C
-    from dsrc_tpu_torch.ops import rans_kernels as RK
-    from dsrc_tpu_torch.ops.rans import cum_from_freqs
     rng = np.random.default_rng(19)
     nc = C.stream_cap(1 << 30, n)
     lanes = C.pick_num_lanes(nc, target_per_lane=2048)
-    syms = np.zeros(nc, np.int32)
-    syms[:n] = rng.choice(19, n, p=rng.dirichlet(np.full(19, 0.7)))
-    syms = torch.from_numpy(syms).to(device)
+    cdf = torch.from_numpy(np.cumsum(rng.dirichlet(np.full(19, 0.7)))[:-1]
+                           .astype(np.float32)).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    syms = torch.zeros(nc, dtype=torch.int32, device=device)
+    syms[:n] = torch.searchsorted(
+        cdf, torch.rand(n, generator=gen, device=device), out_int32=True)
     payload, nwords, states, freqs = DNA._a19_encode(syms, n, 19, lanes, nc)
     pl = _left_aligned(payload, nwords, states).contiguous()
-    t = nc // lanes
-    args = (pl, states, torch.zeros(lanes, dtype=torch.int32, device=device),
-            cum_from_freqs(freqs)[None, :].contiguous(), n, t)
-    got = RK.rans_decode(*args)
-    ref = RK.rans_decode_plain(*args)
-    e = _err(got, ref)
-    if e or not torch.equal(got.reshape(-1)[:n], syms[:n]):
-        raise AssertionError(f"A19 through K2: max abs err {e} vs plain")
-    line = {"phase": "kernels", "stream": "a19", "n": n, "T": t, "L": lanes,
-            "A": 19, "P": 1, "k2_max_abs_err": e}
-    if timed:
-        line["ms"] = time_ms(lambda: RK.rans_decode(*args), 5)
-        line["device_ms"] = time_device_ms(lambda: RK.rans_decode(*args), 5)
-        line["plain_ms"] = time_ms(lambda: RK.rans_decode_plain(*args), 1)
-        line["bound_ms"], line["bound_by"] = bound(
-            2 * int(nwords.sum()) + 8 * lanes + 80 + 4 * nc,
-            (DEC_OPS_BASE + 5) * n)
-        # the chain floor: lane 0 alone, its T steps one after another (a
-        # lane's steps depend on each other, so no schedule of the lanes
-        # decodes the stream faster than its longest lane alone)
-        one = (pl[:1].contiguous(), states[:1].contiguous(), args[2][:1],
-               args[3], t, t)
-        if not torch.equal(RK.rans_decode(*one).reshape(-1), syms[:t]):
-            raise AssertionError("A19 lane 0 alone through K2")
-        line["chain_floor_ms"] = time_device_ms(
-            lambda: RK.rans_decode(*one), 5)
+    del payload
+    return dict(n=n, syms=syms, payload=pl, nwords=nwords, states=states,
+                wptr=torch.zeros(lanes, dtype=torch.int32, device=device),
+                freqs=freqs, fields=tuple(freqs.tolist()), lanes=lanes,
+                t=nc // lanes)
+
+
+def a19_least_step(device) -> dict:
+    """The least dependent step the card allows (k4_variants.least_step:
+    one shared-memory load, one multiply-add, a compare-select; the best
+    of its forms), from the library k4_variants.build_least started."""
+    import k4_variants
+    return k4_variants.least_step(device, os.path.join(
+        ROOT, "build", "chip_smoke", "libk4_least.so"))
+
+
+def a19_check(device, n: int, name: str, least: dict,
+              plain: bool = False) -> dict:
+    """K4 (A19's order-0 decode, ops/a19_kernels.a19_decode) on a19_stream
+    (device, n): equal to the encoded symbols, to K2 at P = 1 and group T
+    (the route that served A19 before K4) and, with `plain`, to
+    a19_decode_plain, all on the same inputs.  Times, by CUDA events: K4
+    host-issued (`ms`) and device (`device_ms`), K2's route (`k2_*`), the
+    plain version (with `plain`), and K4's chain floor: lane 0 alone, its T
+    steps one after another (no schedule of the lanes decodes the stream
+    faster than its longest lane).  Bounds: bytes (payload words, states,
+    start words, table in; symbols out) and operations; the chain bound,
+    T times the least step the card allows (`least`)."""
+    import torch
+    from dsrc_tpu_torch.ops import a19_kernels as AK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    t_start = time.perf_counter()
+    st = a19_stream(device, n)
+    t, lanes = st["t"], st["lanes"]
+    args = (st["payload"], st["states"], st["wptr"], st["fields"], n, t)
+    k2_args = (st["payload"], st["states"], st["wptr"],
+               cum_from_freqs(st["freqs"])[None, :].contiguous(), n, t)
+    got = AK.a19_decode(*args)
+    k2 = RK.rans_decode(*k2_args).reshape(-1)
+    e_k2 = _err(got, k2)
+    if e_k2 or not torch.equal(got[:n].to(torch.int32), st["syms"][:n]):
+        raise AssertionError(f"{name}: K4 differs from K2 at P = 1 (max abs "
+                             f"err {e_k2}) or from the encoded symbols")
+    del k2
+    line = {"phase": "kernels", "stream": name, "n": n, "T": t, "L": lanes,
+            "A": 19, "k2_max_abs_err": e_k2}
+    if plain:
+        ref, line["plain_ms"] = time_once(
+            lambda: AK.a19_decode_plain(*args))
+        e = _err(got, ref)
+        if e:
+            raise AssertionError(f"{name}: K4 differs from a19_decode_plain:"
+                                 f" max abs err {e}")
+        line["max_abs_err"] = e
+    line["ms"] = time_ms(lambda: AK.a19_decode(*args), 5)
+    line["device_ms"] = time_device_ms(lambda: AK.a19_decode(*args), 5)
+    line["k2_ms"] = time_ms(lambda: RK.rans_decode(*k2_args), 3)
+    line["k2_device_ms"] = time_device_ms(lambda: RK.rans_decode(*k2_args),
+                                          3)
+    line["bound_ms"], line["bound_by"] = bound(
+        2 * int(st["nwords"].sum()) + 8 * lanes + 4 * 19 + lanes * t,
+        A19_OPS_PER_SYM * n)
+    line["least_step_ns"] = least["ns"]
+    line["chain_bound_ms"] = least["ns"] * t / 1e6
+    one = (st["payload"][:1], st["states"][:1], st["wptr"][:1],
+           st["fields"], t, t)
+    if not torch.equal(AK.a19_decode(*one).to(torch.int32),
+                       st["syms"][:t]):
+        raise AssertionError(f"{name}: lane 0 alone through K4")
+    line["chain_floor_ms"] = time_device_ms(lambda: AK.a19_decode(*one), 5)
+    line["k2_chain_floor_ms"] = time_device_ms(
+        lambda: RK.rans_decode(*(v[:1] for v in k2_args[:3]), k2_args[3],
+                               t, t), 3)
+    line["device_ns_per_step"] = line["device_ms"] * 1e6 / t
+    line["seconds"] = time.perf_counter() - t_start
     emit(line)
     return line
 
@@ -836,18 +921,23 @@ def a19_check(device, n: int, timed: bool) -> dict:
 def with_iupac(data: bytes, seed: int) -> bytes:
     """Replace about 1% of the bases whose quality is at least 20 by IUPAC
     codes, so that the DNA keeps more than 8 distinct symbols (scheme
-    A19)."""
+    A19).  Records are 4 lines; all of them at once, on the host."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    lines = data.split(b"\n")
+    arr = np.frombuffer(data, np.uint8).copy()
+    nl = np.flatnonzero(arr == ord("\n"))
+    starts = np.concatenate([[0], nl + 1])
+    ends = np.append(nl, len(arr))
+    seq = np.arange(1, len(starts) - 1, 4)
+    lens = ends[seq] - starts[seq]
+    within = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                    lens)
+    pos = np.repeat(starts[seq], lens) + within
+    qpos = np.repeat(starts[seq + 2], lens) + within
+    pick = (rng.random(len(pos)) < 0.01) & (arr[qpos] >= 33 + 20)
     codes = np.frombuffer(b"RWSKMDVHBY", np.uint8)
-    for i in range(1, len(lines) - 1, 4):
-        s = np.frombuffer(lines[i], np.uint8).copy()
-        q = np.frombuffer(lines[i + 2], np.uint8)
-        pick = (rng.random(len(s)) < 0.01) & (q >= 33 + 20)
-        s[pick] = codes[rng.integers(0, len(codes), int(pick.sum()))]
-        lines[i] = s.tobytes()
-    return b"\n".join(lines)
+    arr[pos[pick]] = codes[rng.integers(0, len(codes), int(pick.sum()))]
+    return arr.tobytes()
 
 
 def lossy_fixed_point(device, data: bytes, params, blank: bytes = b"N"
@@ -870,9 +960,11 @@ def lossy_fixed_point(device, data: bytes, params, blank: bytes = b"N"
     return out.getvalue()
 
 
-def generic_phase(device, big: bytes, small: bytes):
+def generic_phase(device, big: bytes, small: bytes, block64: bytes):
     """The -m1 path at full width (big: 128 MB) and the GENERIC options at
-    8 MB (small: an 8 MB realistic file) on the card."""
+    8 MB (small: an 8 MB realistic file) on the card; then one 64 MB -m1
+    block (block64) with IUPAC codes in its DNA (scheme A19, K4 launched
+    once a block)."""
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.config import InputParameters
     from dsrc_tpu_torch.utils.synth import make_fastq
@@ -904,13 +996,19 @@ def generic_phase(device, big: bytes, small: bytes):
              m1_params(8 * MB, calculate_crc32=True), gen),
             ("generic_a19", with_iupac(small, 85),
              InputParameters(fastq_block_size_mb=8, dna_compression_level=1),
-             gen + ("rans_decode",))):
+             gen + ("a19_decode",)),
+            ("generic_m1_64MB_a19", with_iupac(block64, 86),
+             m1_params(64 * MB), gen + ("a19_decode",))):
         r = round_trip(device, name, data, params, kern)
         r.pop("archive")
+        a19_blocks = sum(d == "A19" for d, _ in r["schemes"])
+        if kern[-1] == "a19_decode" and not (
+                a19_blocks == r["launches"]["a19_decode"] >= 1):
+            raise AssertionError(f"{name}: {a19_blocks} A19 blocks, "
+                                 f"{r['launches']['a19_decode']} K4 "
+                                 f"launches")
         emit(r)
         runs.append(r)
-    if not any(d == "A19" for d, _ in runs[-1]["schemes"]):
-        raise AssertionError("the A19 run took no A19 block")
     return runs, big_archive
 
 
@@ -2422,7 +2520,16 @@ def main() -> int:
           "native_host_library": native.available()})
 
     t0 = time.perf_counter()
-    cuda_build.load_all()
+    import k4_variants
+    least_build = k4_variants.build_least(os.path.join(ROOT, "build",
+                                                       "chip_smoke"))
+    try:
+        cuda_build.load_all()
+    finally:
+        least_log = least_build.communicate()[0].decode(errors="replace")
+    if least_build.returncode != 0:
+        raise AssertionError(f"k4_variants' least step does not build:\n"
+                             f"{least_log}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(cuda_build.SOURCES),
           "ptxas": cuda_build.build_usage()})
@@ -2435,12 +2542,18 @@ def main() -> int:
         records["rans_decode"]["max_abs_err"], oversized_table_check(device))
 
     # GENERIC: the context-model streams of an 8 MB -m1 block (K1 and K3
-    # against their plain versions, every band), A19 through K2, then K3's
-    # and K1's times at the 64 MB block's shapes
+    # against their plain versions, every band), K4 on A19 streams, then
+    # K3's and K1's times at the 64 MB block's shapes
     m1_8mb = realistic_of_size(8 * MB - 1024, seed=82)
     recs8 = ctx_checks(device, ctx_streams(device, m1_8mb, m1_params(8 * MB)),
                        "8MB", timed=False, check_plain=True)
-    a19 = a19_check(device, 3_300_000, timed=True)
+    # K4 at n = 3.3 M (against its plain version too) and at the DNA
+    # stream shapes of a 64 MB -m1 and a 256 MB -m2 block
+    least = a19_least_step(device)
+    emit(dict(phase="kernels", stream="a19_least_step", **least))
+    a19 = {name: a19_check(device, n, name, least, plain=name == "a19")
+           for n, name in A19_SHAPES}
+    torch.cuda.empty_cache()
     from dsrc_tpu_torch.io.chunker import FastqChunker
     big = realistic_of_size(128 * MB - 4096, seed=81)
     block64 = FastqChunker(io.BytesIO(big), 64 * MB).next_block().tobytes()
@@ -2461,7 +2574,7 @@ def main() -> int:
         + [r["k1_max_abs_err"] for r in recs8.values()])
 
     launches = {"rans_encode": 0, "rans_decode": 0, "ctx_decode": 0,
-                "hist": 0}
+                "hist": 0, "a19_decode": 0}
     # phases 4-13 run with every K5 launch held to its plain version on its
     # own inputs (the distributed children hold their own)
     hist_check = HistPlainCheck().__enter__()
@@ -2475,7 +2588,7 @@ def main() -> int:
     res_u = round_trip(device, "uniform", uni)
     res_u.pop("archive")
     emit(res_u)
-    runs, big_archive = generic_phase(device, big, m1_8mb)
+    runs, big_archive = generic_phase(device, big, m1_8mb, block64)
     umi = umi_fastq_of_size(64 * MB - 4096, seed=93)
     mode0_runs, mode0_block, umi_archive = semi_mode0_phase(device, umi)
     colour_runs, colour_recs = colour_phase(
@@ -2547,11 +2660,12 @@ def main() -> int:
                         + [hist[k]["max_abs_err"] for k in hist_blocks]),
         ms=m1h["ms"], plain_ms=m1h["plain_ms"], bound_ms=m1h["bound_ms"],
         bound_by=m1h["bound_by"], library_ms=m1h["library_ms"])
+    a19_main = a19["a19"]
     records["a19_decode"] = dict(
-        max_abs_err=a19["k2_max_abs_err"], ms=a19["ms"],
-        plain_ms=a19["plain_ms"], bound_ms=a19["bound_ms"],
-        bound_by=a19["bound_by"], chain_floor_ms=a19["chain_floor_ms"])
-    launches["a19_decode"] = runs[-1]["launches"]["rans_decode"]
+        max_abs_err=max([a19_main["max_abs_err"]]
+                        + [r["k2_max_abs_err"] for r in a19.values()]),
+        ms=a19_main["ms"], plain_ms=a19_main["plain_ms"],
+        bound_ms=a19_main["bound_ms"], bound_by=a19_main["bound_by"])
     replaces = {"rans_encode": "dsrc_tpu/ops/rans_pallas.py:73",
                 "rans_decode": "dsrc_tpu/ops/rans_pallas.py:250",
                 "ctx_decode": "dsrc_tpu/ops/ctx.py:160",
@@ -2562,7 +2676,7 @@ def main() -> int:
     sources = {"rans_encode": "dsrc_tpu_torch/csrc/rans_enc.cu",
                "rans_decode": "dsrc_tpu_torch/csrc/rans_dec.cu",
                "ctx_decode": "dsrc_tpu_torch/csrc/ctx_dec.cu",
-               "a19_decode": "dsrc_tpu_torch/csrc/rans_dec.cu",
+               "a19_decode": "dsrc_tpu_torch/csrc/a19_dec.cu",
                "hist": "dsrc_tpu_torch/csrc/hist.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
@@ -2584,7 +2698,13 @@ def main() -> int:
                           for k in hist_blocks},
                       plain_checked_launches=hist_checked,
                       route_crossover_per_bin=hist["route_sweep"])
-    kernels[3].update(chain_floor_ms=records["a19_decode"]["chain_floor_ms"])
+    # K4: device time, K2's route, both bounds and the chain floor at each
+    # shape (n = 3.3 M first)
+    kernels[3].update(shapes={name: {f: r[f] for f in (
+        "n", "T", "L", "ms", "device_ms", "k2_ms", "k2_device_ms",
+        "bound_ms", "bound_by", "chain_bound_ms", "chain_floor_ms",
+        "k2_chain_floor_ms")} for name, r in a19.items()},
+        least_step_ns=least["ns"])
     kernels[2].update(table_routes=records["ctx_decode"]["route"],
                       chain_floor_ms=records["ctx_decode"]["chain_floor_ms"],
                       m2_shapes=records["ctx_decode"]["m2_shapes"])

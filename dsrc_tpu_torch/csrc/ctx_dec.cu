@@ -81,6 +81,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kProbBits = 14;
@@ -535,7 +537,8 @@ cudaError_t launch_mode(int threads, int groups, int route, int lanes,
 // packed entries a thread (threads*groups >= nsym; the pairs (8, 1..2),
 // (16, 1..4), (32, 1..8)); route: 0 the table packed into shared memory,
 // 1 rows in device memory.  lags: mode 2's lag widths, 8 bits each.
-// Returns the first CUDA error of the launch, or cudaGetLastError() after
+// Leaves the calling thread's current device as it was.  Returns the first
+// CUDA error of the launch, or cudaGetLastError() after
 // it.
 extern "C" int dsrc_ctx_decode(const void* payload, int pairs, void* x,
                                void* wptr, void* carry, const void* lengths,
@@ -546,8 +549,6 @@ extern "C" int dsrc_ctx_decode(const void* payload, int pairs, void* x,
                                int lags, int threads, int groups, int route,
                                void* osym, void* octx, int device,
                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Params p = {};
   p.pairs = pairs;
   p.t0 = t0;
@@ -578,12 +579,14 @@ extern "C" int dsrc_ctx_decode(const void* payload, int pairs, void* x,
 #define DSRC_MODE(M)                                                       \
   launch_mode<M>(threads, groups, route, lanes, s, pl, xs, wp, cr, ln, cm, \
                  rw, ax, p, os, oc)
-  switch (mode) {
-    case 0: err = DSRC_MODE(0); break;
-    case 1: err = DSRC_MODE(1); break;
-    case 2: err = DSRC_MODE(2); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = dsrc::on_device(device, [&] {
+    switch (mode) {
+      case 0: return DSRC_MODE(0);
+      case 1: return DSRC_MODE(1);
+      case 2: return DSRC_MODE(2);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 #undef DSRC_MODE
   return static_cast<int>(err);
 }

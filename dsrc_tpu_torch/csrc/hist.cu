@@ -67,6 +67,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 // Packed launch arguments, one struct from the wrapper (its
 // struct.Struct("<6Qq12i")): pointers (null as 0), the row stride, then
 // 12 ints.  Outside the unnamed namespace, so that dsrc_hist, which takes
@@ -472,27 +474,17 @@ extern "C" int dsrc_hist(const HistArgs* args) {
   const HistArgs& a = *args;
   if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.rows == 0) return 0;
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != a.device) {
-    err = cudaSetDevice(a.device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const Params p{a.vals, static_cast<const int32_t*>(a.ctx),
                  static_cast<const uint8_t*>(a.mask),
                  static_cast<const int32_t*>(a.lengths), a.ld, a.t0, a.rows,
                  a.cols, a.hi_kind, a.nsym, a.nctx, a.nbins, a.vec_head,
                  a.quads};
-  switch (a.vtype) {
-    case 0: err = launch<uint8_t>(p, a); break;
-    case 1: err = launch<int16_t>(p, a); break;
-    case 2: err = launch<int32_t>(p, a); break;
-    default: err = launch<int64_t>(p, a); break;
-  }
-  if (current != a.device) {
-    const cudaError_t back = cudaSetDevice(current);
-    if (err == cudaSuccess) err = back;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dsrc::on_device(a.device, [&] {
+    switch (a.vtype) {
+      case 0: return launch<uint8_t>(p, a);
+      case 1: return launch<int16_t>(p, a);
+      case 2: return launch<int32_t>(p, a);
+      default: return launch<int64_t>(p, a);
+    }
+  }));
 }

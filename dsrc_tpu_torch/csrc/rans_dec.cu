@@ -73,6 +73,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kProbBits = 14;
@@ -233,15 +235,15 @@ cudaError_t launch(int blocks, size_t smem, cudaStream_t stream,
 // cum int32 [P, nsym+1]; out int32 [L*group, P].  ne, stride, tile_rows:
 // the shared-memory layout (rans_kernels.dec_layout): entries per thread
 // (0, 1, 2, 4, 8, 16, or more for alphabets above 513), padded row length,
-// positions per tile.  Returns cudaGetLastError() after the launch.
+// positions per tile.  Leaves the calling thread's current device as it
+// was.  Returns the first CUDA error of the launch, or cudaGetLastError()
+// after it.
 extern "C" int dsrc_rans_decode(const void* payload, int pairs,
                                 const void* states, const void* wptr,
                                 const void* cum, int p, int nsym, int ne,
                                 int stride, int tile_rows, int group,
                                 int lanes, int num_rec, void* out, int device,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (lanes + kWarps - 1) / kWarps;
   const size_t smem =
       static_cast<size_t>(tile_rows < p ? tile_rows : p) * stride * 4;
@@ -254,15 +256,17 @@ extern "C" int dsrc_rans_decode(const void* payload, int pairs,
 #define DSRC_LAUNCH(E)                                                      \
   launch<E>(blocks, smem, s, pl, pairs, st, wp, cm, p, nsym, ne, stride,    \
             tile_rows, group, lanes, num_rec, o)
-  switch (ne) {
-    case 0: err = DSRC_LAUNCH(0); break;
-    case 1: err = DSRC_LAUNCH(1); break;
-    case 2: err = DSRC_LAUNCH(2); break;
-    case 4: err = DSRC_LAUNCH(4); break;
-    case 8: err = DSRC_LAUNCH(8); break;
-    case 16: err = DSRC_LAUNCH(16); break;
-    default: err = DSRC_LAUNCH(-1); break;
-  }
+  const cudaError_t err = dsrc::on_device(device, [&] {
+    switch (ne) {
+      case 0: return DSRC_LAUNCH(0);
+      case 1: return DSRC_LAUNCH(1);
+      case 2: return DSRC_LAUNCH(2);
+      case 4: return DSRC_LAUNCH(4);
+      case 8: return DSRC_LAUNCH(8);
+      case 16: return DSRC_LAUNCH(16);
+      default: return DSRC_LAUNCH(-1);
+    }
+  });
 #undef DSRC_LAUNCH
   return static_cast<int>(err);
 }

@@ -65,6 +65,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kProbBits = 14;
@@ -266,21 +268,22 @@ rans_encode_kernel(const int32_t* __restrict__ freq,
 // Launches K1 on `stream` (a cudaStream_t from PyTorch).  Pointers are device
 // pointers of contiguous tensors: freq, cum int32 [T, L], active bool [T, L],
 // payload int32 [L, wp] (written whole: wp a multiple of 4, as
-// payload_pairs gives it), nwords int32 [L], states uint32 [L].  Returns
-// cudaGetLastError() after the launch.
+// payload_pairs gives it), nwords int32 [L], states uint32 [L].  Leaves the
+// calling thread's current device as it was.  Returns the first CUDA error
+// of the launch, or cudaGetLastError() after it.
 extern "C" int dsrc_rans_encode(const void* freq, const void* cum,
                                 const void* active, int t_steps, int lanes,
                                 int wp, void* payload, void* nwords,
                                 void* states, int device, void* stream) {
   if (wp % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (lanes + 31) / 32;
-  rans_encode_kernel<<<blocks, kThreads, kRingBytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(freq), static_cast<const int32_t*>(cum),
-      static_cast<const uint8_t*>(active), t_steps, lanes, wp,
-      static_cast<uint32_t*>(payload), static_cast<int32_t*>(nwords),
-      static_cast<uint32_t*>(states));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dsrc::on_device(device, [&] {
+    rans_encode_kernel<<<blocks, kThreads, kRingBytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(freq), static_cast<const int32_t*>(cum),
+        static_cast<const uint8_t*>(active), t_steps, lanes, wp,
+        static_cast<uint32_t*>(payload), static_cast<int32_t*>(nwords),
+        static_cast<uint32_t*>(states));
+    return cudaGetLastError();
+  }));
 }

@@ -9,7 +9,7 @@ dsrc_tpu/models/block.py, byte-identical blobs.
               or lossy binning; colour-space digits for SOLiD reads) -> tag /
               quality / DNA sections, each stream coded by the context-model
               codec (ops/ctx.py: K1 to encode, K3 to decode; DNA scheme A19
-              decodes through K2)
+              decodes through K4)
   decompress: exact mirror; FASTQ text is laid out on the host
               (utils/native.layout_records)
 """

@@ -8,10 +8,8 @@ dsrc_tpu/models/dna.py; byte-identical sections).
   scheme CTX4P  : CTX4 on base PAIRS (A = 16) for order >= 4 and n >= 2^16
   scheme CTX8P  : CTX8 on base pairs (A = 64)
   scheme A19    : > 8 distinct: static-table order-0 rANS over the 19-symbol
-                  alphabet; its decode is K2 (ops/rans_kernels.rans_decode)
-                  with one model position (P = 1) and lane j's T steps as its
-                  T records, which is exactly the reference's order-0
-                  wavefront
+                  alphabet; its decode is K4 (ops/a19_kernels.a19_decode),
+                  the reference's order-0 wavefront with one slot table
   scheme RAW    : symbols outside the alphabet: verbatim bytes
 """
 from __future__ import annotations
@@ -26,7 +24,8 @@ from ..ops import ctx as C
 from ..ops import packbits
 from ..ops.rans import (cum_from_freqs, lane_active, lane_lengths,
                         lane_split, quantize_counts)
-from ..ops.rans_kernels import rans_decode, rans_encode_from_freqs
+from ..ops.a19_kernels import a19_decode
+from ..ops.rans_kernels import rans_encode_from_freqs
 from ..ops.streams import (deserialize_rans, serialize_rans, stream_tensors,
                            to_numpy)
 from ..ops.transform import DNA_NSYM, INVALID_SYM, histogram
@@ -62,20 +61,17 @@ def _a19_encode(syms: torch.Tensor, n: int, nsym: int, num_lanes: int,
     return payload, nwords, states, freqs
 
 
-def _a19_decode(payload: torch.Tensor, states: torch.Tensor,
-                freqs: torch.Tensor, n: int, nsym: int, num_lanes: int,
-                cap: int) -> torch.Tensor:
+def _a19_decode(payload: torch.Tensor, states: torch.Tensor, freqs,
+                n: int, nsym: int, num_lanes: int, cap: int) -> torch.Tensor:
     """The reference's order-0 wavefront (lane j active while j*T + t < n,
-    one shared table) as K2 with P = 1 and group = T: K2 decodes record
-    j*T + t of lane j while it is below num_rec = n, and its output
-    [L*T, 1] is already in stream order."""
+    one shared table of nsym = 19 fields) through K4: [L*T] uint8 symbols,
+    already in stream order.  freqs: the table's fields on the host (or a
+    tensor, read back)."""
     t = cap // num_lanes
-    cum = cum_from_freqs(freqs.to(torch.int32))[None, :].contiguous()
     wptr = torch.zeros(payload.shape[0], dtype=torch.int32,
                        device=payload.device)
-    out = rans_decode(payload.to(torch.int32).contiguous(),
-                      states.to(torch.int32).contiguous(), wptr, cum, n, t)
-    return out.reshape(-1)
+    return a19_decode(payload.to(torch.int32).contiguous(),
+                      states.to(torch.int32).contiguous(), wptr, freqs, n, t)
 
 
 def _order4_eff(order: int, n: int) -> int:
@@ -275,8 +271,7 @@ def decode_dna(r: BitReader, cap: int, order: int,
     if scheme == SCHEME_A19:
         num_lanes = C.pick_num_lanes(nc, target_per_lane=2048)
         pl, st = stream_tensors(payload, states, num_lanes, device)
-        fr = torch.from_numpy(freqs).to(device)
-        return _fit(_a19_decode(pl, st, fr, n, DNA_NSYM, num_lanes, nc),
+        return _fit(_a19_decode(pl, st, freqs, n, DNA_NSYM, num_lanes, nc),
                     cap, n), n
     num_lanes = C.pick_num_lanes(nc)
     edges = C.band_edges(nc // num_lanes)

@@ -4,11 +4,12 @@ Each source is compiled by nvcc into its own shared library with a plain C
 interface, loaded with ctypes.  Nothing here includes PyTorch's headers, so
 a build takes seconds.  Libraries are built at first use into
 build/dsrc_tpu_torch/ beside the package (a directory .gitignore lists),
-named by a hash of the source and the flags, so a changed source is never
-served by a stale library.  Sources are compiled in parallel: one nvcc per
-file, all started together.  nvcc runs with -Xptxas -v and its log is
-kept beside each library (`.log`): ptxas_usage() reads each kernel's
-registers, shared memory and spills from it.
+named by a hash of the source, the shared headers and the flags, so a
+changed source is never served by a stale library.  Sources are compiled
+in parallel: one nvcc per file, all started together.  nvcc runs with
+-Xptxas -v and its log is kept beside each library (`.log`):
+ptxas_usage() reads each kernel's registers, shared memory and spills
+from it.
 
 The build needs nvcc (CUDA_HOME/bin, /usr/local/cuda/bin or PATH); a
 missing compiler or a failed build raises.
@@ -29,7 +30,7 @@ from ..config import DsrcException
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dsrc_tpu_torch")
-SOURCES = ("rans_enc", "rans_dec", "ctx_dec", "hist")
+SOURCES = ("rans_enc", "rans_dec", "ctx_dec", "hist", "a19_dec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,8 +48,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    h = hashlib.sha1(open(src, "rb").read())
+    """The library's path, named by a hash of its source, the headers
+    beside it (csrc/*.cuh) and the flags."""
+    h = hashlib.sha1(open(os.path.join(CSRC, name + ".cu"), "rb").read())
+    for hdr in sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        h.update(open(os.path.join(CSRC, hdr), "rb").read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 

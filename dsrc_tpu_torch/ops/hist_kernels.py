@@ -51,7 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import DsrcException
-from .rans_kernels import LAUNCHES, _entry
+from .rans_kernels import LAUNCHES, _entry, _stream
 
 # dynamic shared memory a block may use: all of the 227 KB an H100 block
 # can opt in to
@@ -196,7 +196,7 @@ def _launch(name: str, hist: torch.Tensor, vals: torch.Tensor, ld: int,
     rc = _entry("dsrc_hist")(_ARGS.pack(
         vals_addr, ctx_addr, mask_addr or 0,
         0 if lengths is None else lengths.data_ptr(), hist.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(idx), ld, vtype, t0, rows, cols,
+        _stream(idx), ld, vtype, t0, rows, cols,
         hi_kind, nsym, nctx, nbins, ROUTES.index(route), idx, *plan))
     if rc != 0:
         raise DsrcException(f"{name} kernel launch failed ({route} route): "

@@ -14,13 +14,13 @@ Every launch adds one to its kernel's count in LAUNCHES (thread-safe: the
 whole-file pipeline runs worker threads), so a run can show that its main
 path went through the kernels.
 
-A kernel runs on the card of its tensors, on that card's current stream.
-Each launch is made under torch.cuda.device(dev), which gives the calling
-thread back its current CUDA device afterwards (the C entry point sets
-`dev` and does not restore it): the mesh path launches on several cards
-from one thread, and later work that names no card index must not land on
-the last card used.  K5's entry point (hist_kernels) does the same in C:
-it makes the card current only when it is not, and sets it back.
+A kernel runs on the card of its tensors, on that card's current stream
+(read raw, torch._C._cuda_getCurrentRawStream).  The C entry points of
+K1-K5 share one convention (csrc/launch.cuh): each makes the card current
+only when it is not and sets the thread's earlier device back, so a
+wrapper needs no torch.cuda.device context: the mesh path launches on
+several cards from one thread, and later work that names no card index
+must not land on the last card used.
 """
 from __future__ import annotations
 
@@ -60,7 +60,8 @@ class LaunchCounter:
 
 LAUNCHES: Dict[str, LaunchCounter] = {
     "rans_encode": LaunchCounter(), "rans_decode": LaunchCounter(),
-    "ctx_decode": LaunchCounter(), "hist": LaunchCounter()}
+    "ctx_decode": LaunchCounter(), "hist": LaunchCounter(),
+    "a19_decode": LaunchCounter()}
 
 
 def reset_launch_counts() -> None:
@@ -97,6 +98,9 @@ _SIGNATURES = {
     # one packed argument struct (hist_kernels._ARGS), which ctypes
     # passes for less host time than 17 converted arguments
     "dsrc_hist": ("hist", (ctypes.c_char_p,)),
+    "dsrc_a19_decode": ("a19_dec", (_P, _I, _P, _P, ctypes.POINTER(_I),
+                                    ctypes.c_longlong, _I, _I, _I, _P, _I,
+                                    _P)),
 }
 
 
@@ -111,8 +115,9 @@ def _entry(fn_name: str):
     return fn
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _stream(idx: int) -> int:
+    """The raw current stream of card idx."""
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -212,11 +217,11 @@ def rans_encode_from_freqs(freq: torch.Tensor, cum: torch.Tensor,
     states = torch.empty(lanes, dtype=torch.int32, device=dev)
     if lanes == 0:
         return payload, nwords, states
-    with torch.cuda.device(dev):        # restores the thread's device
-        rc = _entry("dsrc_rans_encode")(
-            freq.data_ptr(), cum.data_ptr(), active.data_ptr(), t_steps,
-            lanes, wp, payload.data_ptr(), nwords.data_ptr(),
-            states.data_ptr(), dev.index or 0, _stream(dev))
+    idx = freq.get_device()
+    rc = _entry("dsrc_rans_encode")(
+        freq.data_ptr(), cum.data_ptr(), active.data_ptr(), t_steps, lanes,
+        wp, payload.data_ptr(), nwords.data_ptr(), states.data_ptr(), idx,
+        _stream(idx))
     if rc != 0:
         raise DsrcException(f"rans_encode kernel launch failed: CUDA error "
                             f"{rc}")
@@ -346,12 +351,12 @@ def rans_decode(payload: torch.Tensor, states: torch.Tensor,
     if lanes == 0 or p == 0:
         return out
     ne, stride, tile_rows = dec_layout(nsym, p)
-    with torch.cuda.device(dev):        # restores the thread's device
-        rc = _entry("dsrc_rans_decode")(
-            payload.data_ptr(), payload.shape[1], states.data_ptr(),
-            wptr.data_ptr(), cum.data_ptr(), p, nsym, ne, stride, tile_rows,
-            group, lanes, max(0, min(int(num_rec), lanes * group)),
-            out.data_ptr(), dev.index or 0, _stream(dev))
+    idx = payload.get_device()
+    rc = _entry("dsrc_rans_decode")(
+        payload.data_ptr(), payload.shape[1], states.data_ptr(),
+        wptr.data_ptr(), cum.data_ptr(), p, nsym, ne, stride, tile_rows,
+        group, lanes, max(0, min(int(num_rec), lanes * group)),
+        out.data_ptr(), idx, _stream(idx))
     if rc != 0:
         raise DsrcException(f"rans_decode kernel launch failed: CUDA error "
                             f"{rc}")

@@ -88,7 +88,8 @@ def build_all() -> dict:
             f.write(variant_source(src, subs))
         lib = os.path.join(BUILD, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, cu],
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC,
+             "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     out = {}
     for name, (lib, proc) in procs.items():

@@ -92,8 +92,8 @@ def build_all(baseline: str) -> dict:
             f.write(text)
         lib = os.path.join(BUILD, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", lib,
-             cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC,
+             *flags, "-o", lib, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     out = {}
     for name, (lib, proc) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")

@@ -1,5 +1,5 @@
 """Parity of the port's context-model codec (dsrc_tpu_torch/ops/ctx.py, K3's
-plain version, the bulk quality history, A19 through K2) with dsrc_tpu.
+plain version, the bulk quality history, A19's decode K4) with dsrc_tpu.
 
 The same numpy inputs, made from a seed, go through the JAX function and
 its counterpart in the port on the CPU, where the kernel wrappers run their
@@ -21,6 +21,7 @@ from dsrc_tpu_torch.models import quality as TQ
 from dsrc_tpu_torch.ops import ctx as TC
 from dsrc_tpu_torch.ops import ctx_kernels as CK
 from dsrc_tpu_torch.ops import rans_kernels as RK
+from torch_jax_split import jax_left, jax_split  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -151,36 +152,6 @@ def _orderk_stream(order, sym_bits, nsym, n=3000):
 
 
 @pytest.fixture(scope="module")
-def jax_split():
-    """dsrc_tpu's encoders with their rANS wavefront split off: under
-    `stubbed()` ops/rans.py:rans_encode_from_freqs returns its inputs
-    (freq, cum, active) in place of (payload, nwords, states), and
-    `wavefront` is the real function, jitted once per [T, L] shape.  The
-    two composed compute the encoder with one compile of the wavefront per
-    shape instead of one per configuration.  JAX's caches, which then hold
-    the stubbed traces, are cleared at the end of the module."""
-    import contextlib
-    from dsrc_tpu.ops import rans as JR
-    wavefront = jax.jit(JR.rans_encode_from_freqs)
-
-    @contextlib.contextmanager
-    def stubbed():
-        with pytest.MonkeyPatch.context() as mp:
-            for mod in (JC, JR):
-                mp.setattr(mod, "rans_encode_from_freqs",
-                           lambda f, c, a: (f, c, a))
-            yield
-
-    def coded(m):
-        payload, nwords, states = wavefront(m["payload"], m["nwords"],
-                                            m["states"])
-        return dict(payload=payload, nwords=nwords, states=states)
-
-    yield stubbed, coded
-    jax.clear_caches()
-
-
-@pytest.fixture(scope="module")
 def jax_encode_orderk(jax_split):
     """The reference's encode_orderk as its band loop (jitted per
     configuration, wavefront stubbed) and its wavefront."""
@@ -248,7 +219,7 @@ def _mode_case(mode, jax_split):
         with stubbed():
             enc = coded(JC.encode_orderk(jnp.asarray(syms), n, 2, 2, 4, L8,
                                          EDGES))
-        pl, st = _jax_left(enc)
+        pl, st = jax_left(enc)
         want = JC.decode_orderk(jnp.asarray(pl), jnp.asarray(st), n, T48, 2,
                                 2, 4, L8, EDGES)
         got = TC.decode_orderk(t32(pl), t32(st.view(np.int32)), n, T48, 2,
@@ -261,7 +232,7 @@ def _mode_case(mode, jax_split):
             enc = coded(JQ._encode_ctxarr(jnp.asarray(syms), n,
                                           jnp.asarray(ctx), 5, 16, L8,
                                           EDGES))
-        pl, st = _jax_left(enc)
+        pl, st = jax_left(enc)
         want = JQ._decode_ctxarr(jnp.asarray(pl), jnp.asarray(st), n,
                                  jnp.asarray(ctx), T48, 5, 16, L8, EDGES)
         got = TQ._decode_ctxarr(t32(pl), t32(st.view(np.int32)), n,
@@ -285,7 +256,7 @@ def _mode_case(mode, jax_split):
                                       np.asarray(enc[k]))
     np.testing.assert_array_equal(u32(got_enc["states"]),
                                   u32(enc["states"]))
-    pl, st = _jax_left(enc)
+    pl, st = jax_left(enc)
     want = JQ._decode_ctxq(jnp.asarray(pl), jnp.asarray(st), n,
                            jnp.asarray(lens), L8 * T48, T48, 3, 4, L8, EDGES,
                            n_hint)
@@ -302,15 +273,6 @@ def _record_lengths(rng, n, boundaries):
                   | set(boundaries))
     edges = np.array([0] + [c for c in cuts if c < n] + [n])
     return np.diff(edges).astype(np.int32)
-
-
-def _jax_left(enc):
-    from dsrc_tpu.ops.streams import deserialize_rans, serialize_rans
-    from dsrc_tpu.utils.bitio import BitReader, BitWriter
-    w = BitWriter()
-    serialize_rans(w, 1, enc["payload"], enc["nwords"], enc["states"])
-    _n, pl, st, _nw = deserialize_rans(BitReader(w.getvalue()))
-    return pl, st
 
 
 @pytest.mark.parametrize("mode", [CK.MODE_HISTORY, CK.MODE_PRECOMPUTED,
@@ -348,7 +310,7 @@ def test_band_state_carries_across_calls():
 
 
 # --------------------------------------------------------------------------
-# K4: A19 through K2 at P = 1
+# K4: A19's decode (ops/a19_kernels; its plain version on the CPU)
 # --------------------------------------------------------------------------
 
 def test_a19_through_k2_equals_the_reference(jax_split):
@@ -369,15 +331,15 @@ def test_a19_through_k2_equals_the_reference(jax_split):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(u32(t[2]), u32(j[2]))
     np.testing.assert_array_equal(t[3].numpy(), np.asarray(j[3]))
-    pl, st = _jax_left(dict(payload=j[0], nwords=j[1], states=j[2]))
+    pl, st = jax_left(dict(payload=j[0], nwords=j[1], states=j[2]))
     want = np.asarray(JDNA._a19_decode(jnp.asarray(pl), jnp.asarray(st),
                                        j[3], jnp.int32(n), 19, lanes, cap))
-    launches = RK.LAUNCHES["rans_decode"].count
+    launches = RK.launch_counts()
     got = TDNA._a19_decode(t32(pl), t32(st.view(np.int32)), t[3], n, 19,
                            lanes, cap).numpy()
     np.testing.assert_array_equal(got[:n], want[:n])
     np.testing.assert_array_equal(got[:n], syms[:n])
-    assert RK.LAUNCHES["rans_decode"].count == launches   # CPU: plain
+    assert RK.launch_counts() == launches              # CPU: plain
 
 
 def test_hash_mul_is_not_ported():

@@ -1,6 +1,6 @@
 """Kernels K1 (rANS encode), K2 (rANS decode), K3 (context-model band
-decode) and K5 (histogram) against their plain PyTorch versions, on an
-NVIDIA card.  Marked `cuda`: they skip where torch sees no CUDA device.
+decode), K4 (A19's order-0 decode) and K5 (histogram) against their plain
+PyTorch versions, on an NVIDIA card.  Marked `cuda`: they skip where torch sees no CUDA device.
 On the card, chip_smoke.py runs the same checks at the main path's
 shapes; run these with
 
@@ -208,7 +208,7 @@ def test_main_path_on_the_card_counts_launches(cuda):
 
 
 # --------------------------------------------------------------------------
-# K3 (context-model band decode) and A19 through K2
+# K3 (context-model band decode), and A19's decode against K2
 # --------------------------------------------------------------------------
 
 def _ctx_case(device, mode_kind, lanes, t_steps, nsym, seed, wide=False):
@@ -353,9 +353,12 @@ def test_k3_word_pointer_at_the_payload_end(cuda, route):
 
 
 def test_a19_through_k2_on_19_symbols(cuda):
+    """A19's decode through K4 equals K2 at P = 1 (the route that served
+    it before K4) and the encoded symbols, on K1's right-aligned payload."""
     from dsrc_tpu_torch.models import dna as DNA
-    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    from dsrc_tpu_torch.ops import a19_kernels as AK
     from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
     rng = np.random.default_rng(19)
     cap, lanes = 1 << 16, 16
     n = cap - 777
@@ -364,12 +367,131 @@ def test_a19_through_k2_on_19_symbols(cuda):
     syms = torch.from_numpy(syms).to(cuda)
     payload, nwords, states, freqs = DNA._a19_encode(syms, n, 19, lanes, cap)
     # K1's payload is right-aligned: lane j starts at word 2*Wp - nwords[j]
-    args = (payload, states, (2 * payload.shape[1] - nwords).to(torch.int32),
+    wptr = (2 * payload.shape[1] - nwords).to(torch.int32)
+    args = (payload, states, wptr,
             cum_from_freqs(freqs)[None, :].contiguous(), n, cap // lanes)
-    got = RK.rans_decode(*args)
+    k2 = RK.rans_decode(*args)
+    got = AK.a19_decode(payload, states, wptr, freqs, n, cap // lanes)
     torch.cuda.synchronize()
-    assert torch.equal(got, RK.rans_decode_plain(*args))
-    assert torch.equal(got.reshape(-1)[:n], syms[:n])
+    assert torch.equal(k2, RK.rans_decode_plain(*args))
+    assert torch.equal(got.to(torch.int32), k2.reshape(-1))
+    assert torch.equal(got[:n].to(torch.int32), syms[:n])
+
+
+# --------------------------------------------------------------------------
+# K4 (A19's order-0 decode)
+# --------------------------------------------------------------------------
+
+def _k4_fields(name):
+    """Tables of 19 fields in [0, 2^14): quantized like the encoder's, and
+    the edges an archive's fields can carry."""
+    rng = np.random.default_rng(len(name))
+    if name == "quantized":
+        from dsrc_tpu_torch.ops.rans import quantize_counts
+        return quantize_counts(torch.from_numpy(
+            rng.integers(0, 5000, 19))).tolist()
+    return {"zero_fields": [4000, 0, 0, 8000] + [0] * 14 + [4384],
+            "sum_below": [100] * 19, "sum_above": [(1 << 14) - 1] * 19,
+            "all_zero": [0] * 19, "last_only": [0] * 18 + [77]}[name]
+
+
+@pytest.mark.parametrize("name", ["quantized", "zero_fields", "sum_below",
+                                  "sum_above", "all_zero", "last_only"])
+@pytest.mark.parametrize("lanes,w,t,lanes_per_block", [
+    (13, 40, 150, 32),        # T not a multiple of 16: a byte a step
+    (40, 64, 160, 32),        # 16-byte stores, two blocks
+    (33, 7, 33, 16),          # lanes past a block, a short row
+    (300, 130, 2048, 128)])   # rows read past several ring refills
+def test_k4_equals_plain(cuda, monkeypatch, name, lanes, w, t,
+                         lanes_per_block):
+    """Random payloads and states (most steps take a word) from start
+    words inside, around and outside the rows; the last lanes idle."""
+    from dsrc_tpu_torch.ops import a19_kernels as AK
+    monkeypatch.setattr(AK, "LANES_PER_BLOCK", lanes_per_block)
+    freqs = _k4_fields(name)
+    rng = np.random.default_rng(lanes * t)
+    payload = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, (lanes, w)).astype(np.int32))
+    states = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, lanes).astype(np.int32))
+    wptr = torch.from_numpy(rng.integers(-9, 2 * w + 9, lanes)
+                            .astype(np.int32))
+    n = lanes * t - t // 2 - 3 * t
+    args = [v.to(cuda) for v in (payload, states, wptr)]
+    before = AK.LAUNCHES["a19_decode"].count
+    got = AK.a19_decode(*args, freqs, n, t)
+    torch.cuda.synchronize()
+    assert AK.LAUNCHES["a19_decode"].count == before + 1
+    want = AK.a19_decode_plain(payload, states, wptr, freqs, n, t)
+    assert got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want)
+
+
+def test_k4_equals_k2_at_the_m1_block_shape(cuda):
+    """T = 16,384 (the DNA stream of a 64 MB -m1 block), 2,048 lanes: K4
+    equals K2 at P = 1 and the encoded symbols."""
+    import chip_smoke as CS
+    from dsrc_tpu_torch.ops import a19_kernels as AK
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.ops.rans import cum_from_freqs
+    st = CS.a19_stream(cuda, 25_000_000)
+    assert st["t"] == 16384 and st["lanes"] == 2048
+    got = AK.a19_decode(st["payload"], st["states"], st["wptr"],
+                        st["fields"], st["n"], st["t"])
+    k2 = RK.rans_decode(st["payload"], st["states"], st["wptr"],
+                        cum_from_freqs(st["freqs"])[None, :].contiguous(),
+                        st["n"], st["t"])
+    assert torch.equal(got.to(torch.int32), k2.reshape(-1))
+    assert torch.equal(got[:st["n"]].to(torch.int32), st["syms"][:st["n"]])
+
+
+def test_k4_stays_bounded_on_a_corrupt_payload(cuda):
+    """A valid stream with its payload and states overwritten at random:
+    no fault, every symbol in [0, 19), equal to the plain version."""
+    import chip_smoke as CS
+    from dsrc_tpu_torch.ops import a19_kernels as AK
+    st = CS.a19_stream(cuda, 400_000)
+    rng = np.random.default_rng(13)
+    pl = st["payload"].clone()
+    flat = pl.view(-1)
+    hit = torch.from_numpy(rng.integers(0, flat.numel(), flat.numel() // 50))
+    flat[hit.to(cuda)] = torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, hit.numel()).astype(np.int32)).to(cuda)
+    states = st["states"].clone()
+    states[::3] = torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, states[::3].numel()).astype(np.int32)).to(cuda)
+    args = (pl, states, st["wptr"], st["fields"], st["n"], st["t"])
+    got = AK.a19_decode(*args)
+    torch.cuda.synchronize()
+    assert int(got.max()) < 19
+    assert torch.equal(got, AK.a19_decode_plain(*args))
+
+
+def test_m1_block_with_iupac_codes_launches_k4(cuda):
+    """An -m1 block whose DNA holds IUPAC codes takes scheme A19 and
+    decodes through K4, one launch a block, byte-exactly, with the port's
+    CPU archive."""
+    import chip_smoke as CS
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils.synth import make_fastq_realistic
+    data = CS.with_iupac(make_fastq_realistic(3000, 100, seed=86), 86)
+    params = InputParameters(dna_compression_level=2,
+                             quality_compression_level=2,
+                             fastq_block_size_bytes=1 << 20)
+    RK.reset_launch_counts()
+    arch, out = io.BytesIO(), io.BytesIO()
+    info = DsrcModule(params, device=cuda).compress(io.BytesIO(data), arch)
+    arch.seek(0)
+    DsrcModule(params, device=cuda).decompress(arch, out)
+    assert out.getvalue() == data
+    a19_blocks = sum(d == "A19" for d, _ in info.schemes)
+    assert a19_blocks >= 1
+    assert RK.launch_counts()["a19_decode"] == a19_blocks
+    cpu_arch = io.BytesIO()
+    DsrcModule(params, device="cpu").compress(io.BytesIO(data), cpu_arch)
+    assert cpu_arch.getvalue() == arch.getvalue()
 
 
 def test_one_m1_block_round_trip(cuda):
@@ -497,9 +619,9 @@ def test_mesh_on_one_card_twice_equals_one_device(cuda, monkeypatch):
 
 
 def test_launches_on_a_second_card_keep_the_thread_device():
-    """K1, K2 and K3 launched on cuda:1 from a worker thread whose current
-    device is cuda:0 equal their plain versions, and the thread's current
-    device is still cuda:0 afterwards."""
+    """K1, K2, K3 and K4 launched on cuda:1 from a worker thread whose
+    current device is cuda:0 equal their plain versions, and the thread's
+    current device is still cuda:0 afterwards."""
     import threading
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
@@ -545,7 +667,15 @@ def test_launches_on_a_second_card_keep_the_thread_device():
                                  mode)
         result["k3"] = all(torch.equal(a.cpu(), b)
                            for a, b in zip(state, ref))
-        result["devices"] = (after_k1, after_k2, torch.cuda.current_device())
+        after_k3 = torch.cuda.current_device()
+        from dsrc_tpu_torch.ops import a19_kernels as AK
+        k4_args = (enc[0], enc[2], wptr, [862] * 19, 1000, 8)
+        result["k4"] = torch.equal(AK.a19_decode(*k4_args).cpu(),
+                                   AK.a19_decode_plain(*(
+                                       a.cpu() if isinstance(a, torch.Tensor)
+                                       else a for a in k4_args)))
+        result["devices"] = (after_k1, after_k2, after_k3,
+                             torch.cuda.current_device())
 
     def run():
         try:
@@ -558,8 +688,8 @@ def test_launches_on_a_second_card_keep_the_thread_device():
     t.join()
     if "error" in result:
         raise result["error"]
-    assert result["k1"] and result["k2"] and result["k3"]
-    assert result["devices"] == (0, 0, 0)
+    assert result["k1"] and result["k2"] and result["k3"] and result["k4"]
+    assert result["devices"] == (0, 0, 0, 0)
 
 
 # --------------------------------------------------------------------------

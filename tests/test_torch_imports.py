@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing dsrc_tpu_torch, every one of its
 modules (the record API dsrc_tpu_torch.archive_api, the examples and the
 multi-device modules parallel/mesh.py and parallel/distributed.py among
-them), chip_smoke.py and the k1, k3 and k5_variants.py scripts loads
+them), chip_smoke.py and the k1, k3, k4 and k5_variants.py scripts loads
 neither JAX nor anything of dsrc_tpu.
 
 Checked in a subprocess, because this test process has JAX loaded already
@@ -18,7 +18,8 @@ import dsrc_tpu_torch
 for m in pkgutil.walk_packages(dsrc_tpu_torch.__path__, "dsrc_tpu_torch."):
     if not m.name.endswith("__main__"):          # __main__ runs the CLI
         importlib.import_module(m.name)
-for script in ("chip_smoke", "k1_variants", "k3_variants", "k5_variants"):
+for script in ("chip_smoke", "k1_variants", "k3_variants", "k4_variants",
+               "k5_variants"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dsrc_tpu_torch.api import DsrcModule
