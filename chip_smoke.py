@@ -1489,21 +1489,26 @@ def round_trip(device, name: str, data: bytes, params=None,
     import torch
     from dsrc_tpu_torch.api import DsrcModule
     from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils import trace
     mod = DsrcModule(params, device=device)
     arch = io.BytesIO()
     out = io.BytesIO()
     RK.reset_launch_counts()
-    t0 = time.perf_counter()
-    info = mod.compress(io.BytesIO(data), arch)
-    t1 = time.perf_counter()
-    stages_c = dict(mod.last_stage_times.seconds)
-    arch.seek(0)
-    mod.decompress(arch, out)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    trace.start(keep=False)
+    try:
+        t0 = time.perf_counter()
+        info = mod.compress(io.BytesIO(data), arch)
+        t1 = time.perf_counter()
+        stages_c = stage_seconds(mod)
+        arch.seek(0)
+        mod.decompress(arch, out)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        trace.stop()
     counts = RK.launch_counts()
-    stages_d = dict(mod.last_stage_times.seconds)
+    stages_d = stage_seconds(mod)
     if out.getvalue() != data:
         raise AssertionError(f"{name}: round trip is not byte-exact")
     for k in kernels:
@@ -1523,6 +1528,12 @@ def round_trip(device, name: str, data: bytes, params=None,
             "launches": counts, "schemes": info.schemes,
             "archive": arch.getvalue()
             if keep_archive or len(data) <= 8 * MB + 4096 else None}
+
+
+def stage_seconds(mod) -> dict:
+    """Seconds of the recorder's api.read, block and api.write spans in the
+    module's last call, summed over threads (the recorder was on)."""
+    return {k: t.seconds for k, t in mod.last_stage_times.items()}
 
 
 def fastq_of_size(nbytes: int, seed: int, fixed_width: bool) -> bytes:
@@ -2265,6 +2276,7 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
     import torch
     from dsrc_tpu_torch import cli
     from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils import trace
     tmp = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(tmp, exist_ok=True)
     src, arc, back = (os.path.join(tmp, name + ext)
@@ -2277,6 +2289,7 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
     try:
         RK.reset_launch_counts()
         secs, peaks, reserved, rcs = [], [], [], []
+        trace.start(keep=False)     # the recorder's totals: stage_seconds
         with cli_modules() as mods, codec_intervals() as spans:
             t_run = time.perf_counter()
             for argv in (["c", *opts, src, arc], ["d", arc, back]):
@@ -2297,6 +2310,7 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
         with open(arc, "rb") as f:
             archive = f.read()
     finally:
+        trace.stop()
         for path in (src, arc, back):
             if os.path.exists(path):
                 os.remove(path)
@@ -2316,8 +2330,8 @@ def cli_round_trip(device, name: str, data: bytes, opts) -> dict:
                             for op, k, a, b in sorted(spans,
                                                       key=lambda x: x[2])],
             # host-clock seconds per stage, summed over the worker threads
-            "compress_stage_s": dict(mods[0].last_stage_times.seconds),
-            "decompress_stage_s": dict(mods[1].last_stage_times.seconds),
+            "compress_stage_s": stage_seconds(mods[0]),
+            "decompress_stage_s": stage_seconds(mods[1]),
             "schemes": mods[0].info.schemes, "launches": launches,
             "archive": archive}
 

@@ -14,9 +14,7 @@ among the processes of a torch.distributed group
 from __future__ import annotations
 
 import itertools
-import threading
-import time
-from typing import BinaryIO, Optional, Union
+from typing import BinaryIO, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -29,12 +27,17 @@ from .models.block import (BLOCK_SEMI, BLOCK_UNIFORM, BlockCodec,
                            BlockShape, StreamsInfo, host_stage_uniform,
                            parse_semi_block, read_uniform_block)
 from .ops import parser as P
+from .ops.streams import item
 from .parallel import uniform_pipeline as UP
 from .parallel.mesh import (MeshSemiCodec, MeshUniformCodec,
                             local_device_mesh, on_cards)
 from .parallel.pipeline import ordered_parallel_map
+from .utils import trace
 from .utils.bitio import BitReader
 from .utils.device import DEFAULT_DEVICE, resolve_device
+
+#: the spans DsrcModule.last_stage_times reads
+STAGES = ("api.read", "block", "api.write")
 
 
 def analyze_first_block(block: np.ndarray, shape: BlockShape,
@@ -49,43 +52,17 @@ def analyze_first_block(block: np.ndarray, shape: BlockShape,
     data[:len(block)] = block
     data = torch.from_numpy(data).to(dev)
     parsed = P.parse_block(data, len(block), shape.rcap)
-    if not bool(parsed.valid):
+    if not item(parsed.valid):
         raise DsrcException("Error analyzing FASTQ dataset")
     d = P.analyze_block(data, parsed)
-    if not bool(d["plus_consistent"]):
+    if not item(d["plus_consistent"]):
         raise DsrcException("Error analyzing FASTQ dataset "
                             "(inconsistent '+' lines)")
     offset = forced_offset if forced_offset != AUTO_QUALITY_OFFSET \
-        else int(d["quality_offset"])
+        else item(d["quality_offset"])
     return DatasetType(quality_offset=offset,
-                       plus_repetition=bool(d["plus_repetition"]),
-                       color_space=bool(d["color_space"]))
-
-
-class StageTimes:
-    """Per-stage wall-clock + byte accounting for the whole-file pipeline.
-    Thread-safe: worker threads accumulate concurrently, so per-stage
-    seconds are summed across workers, not elapsed wall time."""
-
-    STAGES = ("read", "codec", "write")
-
-    def __init__(self):
-        self.seconds = {s: 0.0 for s in self.STAGES}
-        self.bytes = {s: 0 for s in self.STAGES}
-        self._lock = threading.Lock()
-
-    def add(self, stage: str, dt: float, nbytes: int = 0) -> None:
-        with self._lock:
-            self.seconds[stage] += dt
-            self.bytes[stage] += nbytes
-
-    def lines(self):
-        for s in self.STAGES:
-            sec = self.seconds[s]
-            mb = self.bytes[s] / (1 << 20)
-            rate = mb / sec if sec > 1e-9 else 0.0
-            yield (f"{s:8s} {sec:8.2f} s  {mb:10.1f} MB  "
-                   f"{rate:10.1f} MB/s")
+                       plus_repetition=item(d["plus_repetition"]),
+                       color_space=item(d["color_space"]))
 
 
 class DsrcModule:
@@ -96,8 +73,18 @@ class DsrcModule:
                  device=DEFAULT_DEVICE):
         self.params = params or InputParameters()
         self.device = resolve_device(device)
-        #: per-stage timing of the most recent compress/decompress call
-        self.last_stage_times: Optional[StageTimes] = None
+        self._last_op: Optional[int] = None
+
+    @property
+    def last_stage_times(self) -> Optional[Dict[str, trace.Total]]:
+        """The recorder's totals (utils/trace.py) of api.read, block and
+        api.write for the most recent compress or decompress call, by span
+        name: seconds summed over threads, count and bytes.  None when the
+        recorder was off for that call or has started a session since."""
+        if self._last_op is None:
+            return None
+        by = trace.totals(self._last_op)
+        return {k: by[k] for k in STAGES if k in by} or None
 
     # ---- Configurable-style properties (Configurable.h:45-90)
     @property
@@ -165,6 +152,14 @@ class DsrcModule:
     def compress(self, fastq_path: Union[str, BinaryIO],
                  dsrc_path: Union[str, BinaryIO],
                  distributed: bool = False) -> StreamsInfo:
+        with trace.op("compress") as root:
+            self._last_op = root and root.op
+            return self._compress(fastq_path, dsrc_path, distributed, root)
+
+    def _compress(self, fastq_path, dsrc_path, distributed: bool,
+                  root) -> StreamsInfo:
+        """compress(); root: its op.compress span (None while the recorder
+        is off), which the spans of other threads run under."""
         if distributed:
             # every process of the torch.distributed group compresses its
             # share of the blocks and writes them at computed offsets: the
@@ -186,14 +181,15 @@ class DsrcModule:
         own_in = isinstance(fastq_path, str)
         src = open(fastq_path, "rb") if own_in else fastq_path
         info_total = StreamsInfo()
-        times = self.last_stage_times = StageTimes()
         try:
             chunker = FastqChunker(src, block_size)
-            first = chunker.next_block()
+            first = _read(chunker.next_block, root)
             if first is None:
                 raise DsrcException("empty FASTQ input")
-            dataset = analyze_first_block(first, shape,
-                                          params.quality_offset, self.device)
+            with trace.span("api.analyze", len(first)):
+                dataset = analyze_first_block(first, shape,
+                                              params.quality_offset,
+                                              self.device)
             codec = BlockCodec(shape, settings, dataset, self.device)
             writer = ArchiveWriter(dsrc_path, settings, dataset, block_size)
 
@@ -206,24 +202,20 @@ class DsrcModule:
 
             def rest():
                 while True:
-                    t0 = time.perf_counter()
-                    block = chunker.next_block()
-                    times.add("read", time.perf_counter() - t0,
-                              0 if block is None else len(block))
+                    block = _read(chunker.next_block, root)
                     if block is None:
                         return
                     yield check(block)
 
-            def job(item):
-                index, block = item
-                t0 = time.perf_counter()
-                blob, info = codec.compress(block, index)
-                if settings.calculate_crc32 and \
-                        not codec.verify_checksum(blob):
-                    raise DsrcException("CRC32 verification failed "
-                                        "while compressing")
-                times.add("codec", time.perf_counter() - t0, len(block))
-                return blob, _count_records(block), info
+            def job(indexed):
+                index, block = indexed
+                with trace.span("block", len(block), index, under=root):
+                    blob, info = codec.compress(block, index)
+                    if settings.calculate_crc32 and \
+                            not codec.verify_checksum(blob):
+                        raise DsrcException("CRC32 verification failed "
+                                            "while compressing")
+                    return blob, _count_records(block), info
 
             all_blocks = enumerate(itertools.chain([check(first)], rest()))
             # the mesh only when the first block is a mesh class (UNIFORM or
@@ -248,11 +240,11 @@ class DsrcModule:
                 else:
                     results = itertools.chain(head, map(job, all_blocks))
             for blob, nrec, info in results:
-                t0 = time.perf_counter()
-                writer.write_block(blob, nrec)
-                times.add("write", time.perf_counter() - t0, len(blob))
+                with trace.span("api.write", len(blob)):
+                    writer.write_block(blob, nrec)
                 info_total.add(info)
-            writer.finish()
+            with trace.span("api.write"):
+                writer.finish()
         finally:
             if own_in:
                 src.close()
@@ -260,26 +252,30 @@ class DsrcModule:
 
     def decompress(self, dsrc_path: Union[str, BinaryIO],
                    fastq_path: Union[str, BinaryIO]) -> None:
+        with trace.op("decompress") as root:
+            self._last_op = root and root.op
+            self._decompress(dsrc_path, fastq_path, root)
+
+    def _decompress(self, dsrc_path, fastq_path, root) -> None:
+        """decompress(); root as in _compress."""
         reader = ArchiveReader(dsrc_path)
         shape = BlockShape.for_block_size(reader.block_size_bytes)
         codec = BlockCodec(shape, reader.settings, reader.dataset,
                            self.device)
         own_out = isinstance(fastq_path, str)
         dst = open(fastq_path, "wb") if own_out else fastq_path
-        times = self.last_stage_times = StageTimes()
         try:
             def read_blobs():
                 for i in range(reader.num_blocks):
-                    t0 = time.perf_counter()
-                    blob = reader.read_block(i)
-                    times.add("read", time.perf_counter() - t0, len(blob))
-                    yield blob
+                    yield _read(lambda: reader.read_block(i), root)
 
-            def decode(blob):
-                t0 = time.perf_counter()
-                text = codec.decompress(blob)
-                times.add("codec", time.perf_counter() - t0, text.nbytes)
-                return text
+            def decode(indexed):
+                index, blob = indexed
+                with trace.span("block", block=index, under=root) as sp:
+                    text = codec.decompress(blob)
+                    if sp is not None:
+                        sp.nbytes = text.nbytes
+                    return text
 
             blobs = read_blobs()
             head_blob = next(blobs, None)
@@ -291,20 +287,30 @@ class DsrcModule:
                 texts = _mesh_decompress_results(blobs, codec, mesh)
             else:
                 workers = self.params.num_workers or 2
-                head = [decode(b) for b in itertools.islice(blobs, 1)]
+                indexed = enumerate(blobs)
+                head = [decode(b) for b in itertools.islice(indexed, 1)]
                 if workers > 1:
                     texts = itertools.chain(
-                        head, ordered_parallel_map(blobs, decode, workers))
+                        head, ordered_parallel_map(indexed, decode, workers))
                 else:
-                    texts = itertools.chain(head, map(decode, blobs))
+                    texts = itertools.chain(head, map(decode, indexed))
             for text in texts:
-                t0 = time.perf_counter()
-                dst.write(text.tobytes())
-                times.add("write", time.perf_counter() - t0, text.nbytes)
+                with trace.span("api.write", text.nbytes):
+                    dst.write(text.tobytes())
         finally:
             if own_out:
                 dst.close()
             reader.close()
+
+
+def _read(next_block, root):
+    """next_block() in an api.read span (on the reader thread, under the
+    call's root span), with the bytes it read."""
+    with trace.span("api.read", under=root) as sp:
+        block = next_block()
+        if sp is not None and block is not None:
+            sp.nbytes = len(block)
+        return block
 
 
 def _count_records(block: np.ndarray) -> int:

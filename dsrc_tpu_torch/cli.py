@@ -19,7 +19,10 @@ Options (compression):
          -m2 = -d3 -q2 -b256
   -t<n>  worker threads (pipeline depth), 0 = auto       [auto]
   -s     FASTQ side on stdin/stdout
-  -v     verbose per-stream statistics
+  -v     verbose: per-stream sizes (c), then the recorder's spans
+         (dsrc_tpu_torch/utils/trace.py): each span's self seconds
+         summed over threads, count and MB; the device-to-host reads;
+         whether native/libdsrc_host.so served the host
 
 Options (decompression):
   -r<N:M>  extract only records [N, M) (0-based) via the block index
@@ -30,6 +33,7 @@ import sys
 from typing import List, Optional
 
 from .config import DsrcException, FieldMask, InputParameters
+from .utils import native, trace
 
 USAGE = __doc__
 
@@ -102,39 +106,52 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
         mode, params, inp, outp = parse_args(argv)
-        from .api import DsrcModule
-        m = DsrcModule(params, device)
-        if mode == "c":
-            src = sys.stdin.buffer if inp is None else inp
-            info = m.compress(src, outp)
+        if params.verbose:
+            trace.start(keep=False)
+        try:
+            _run(mode, params, inp, outp, device)
+        finally:
             if params.verbose:
-                for k in ("tag", "dna", "quality", "meta"):
-                    print(f"{k:8s} raw {info.raw[k]:>14d}  "
-                          f"compressed {info.comp[k]:>12d}", file=sys.stderr)
-        elif params.record_range is not None:
-            # records [N, M) through the block index: only the blocks that
-            # overlap the range are decompressed
-            from .archive_api import DsrcArchive
-            dst = sys.stdout.buffer if outp is None else open(outp, "wb")
-            try:
-                with DsrcArchive(params, device) as arch:
-                    arch.start_decompress(inp)
-                    a, b = params.record_range
-                    b = min(b, arch.record_count)
-                    for rec in arch.read_records(a, b):
-                        dst.write(rec.to_bytes())
-            finally:
-                if outp is not None:
-                    dst.close()
-        else:
-            dst = sys.stdout.buffer if outp is None else outp
-            m.decompress(inp, dst)
-        if params.verbose and m.last_stage_times is not None:
-            print("per-stage (seconds are summed across workers):",
-                  file=sys.stderr)
-            for line in m.last_stage_times.lines():
+                rec = trace.stop()
+        if params.verbose:
+            for line in trace.table(rec):
                 print("  " + line, file=sys.stderr)
+            print("  native host library: " + (
+                "loaded" if native.available() else "numpy fallbacks"),
+                file=sys.stderr)
     except DsrcException as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     return 0
+
+
+def _run(mode: str, params: InputParameters, inp, outp,
+         device: str) -> None:
+    """One CLI operation."""
+    from .api import DsrcModule
+    m = DsrcModule(params, device)
+    if mode == "c":
+        src = sys.stdin.buffer if inp is None else inp
+        info = m.compress(src, outp)
+        if params.verbose:
+            for k in ("tag", "dna", "quality", "meta"):
+                print(f"{k:8s} raw {info.raw[k]:>14d}  "
+                      f"compressed {info.comp[k]:>12d}", file=sys.stderr)
+    elif params.record_range is not None:
+        # records [N, M) through the block index: only the blocks that
+        # overlap the range are decompressed
+        from .archive_api import DsrcArchive
+        dst = sys.stdout.buffer if outp is None else open(outp, "wb")
+        try:
+            with DsrcArchive(params, device) as arch:
+                arch.start_decompress(inp)
+                a, b = params.record_range
+                b = min(b, arch.record_count)
+                for rec in arch.read_records(a, b):
+                    dst.write(rec.to_bytes())
+        finally:
+            if outp is not None:
+                dst.close()
+    else:
+        dst = sys.stdout.buffer if outp is None else outp
+        m.decompress(inp, dst)

@@ -26,10 +26,10 @@ from ..config import CompressionSettings, DatasetType, DsrcException
 from ..ops import parser as P
 from ..ops import transform as T
 from ..ops.rans import PROB_BITS, payload_pairs
-from ..ops.streams import (deserialize_rans, pack_ints, serialize_rans,
-                           to_numpy, unpack_ints)
+from ..ops.streams import (deserialize_rans, item, pack_ints,
+                           serialize_rans, to_numpy, unpack_ints)
 from ..parallel import uniform_pipeline as UP
-from ..utils import native
+from ..utils import native, trace
 from ..utils.bitio import BitReader, BitWriter
 from ..utils.crc32 import crc32
 from ..utils.device import resolve_device
@@ -188,7 +188,7 @@ def serialize_uniform_block(comp, spec, num_rec: int, rpad: int,
     w.put_varint(spec.title_len)
     w.put_varint(spec.read_len)
     _put_wire(w, wire)
-    w.put_byte(int(comp["qual_mode"]))   # 0 direct / 1 horizontal delta
+    w.put_byte(item(comp["qual_mode"]))  # 0 direct / 1 horizontal delta
     meta_end = w.byte_position
     _put_pos_stream(w, num_rec * spec.title_len, comp["title"])
     t_end = w.byte_position
@@ -335,7 +335,7 @@ def _put_semi_header(w: BitWriter, comp, num_rec: int, rpad: int,
     w.put_varint(rpad)
     w.put_varint(read_len)
     _put_wire(w, wire)
-    w.put_byte(int(comp["qual_mode"]))
+    w.put_byte(item(comp["qual_mode"]))
     w.put_byte(title_mode)
 
 
@@ -392,11 +392,16 @@ def serialize_semi0_block(comp, num_rec: int, rpad: int, read_len: int,
     """compress_semi output and the block's titles -> (blob, StreamsInfo) of
     a title mode 0 block: the titles go through the tag coder, its byte
     streams coded on `device`."""
-    w = BitWriter()
-    _put_semi_header(w, comp, num_rec, rpad, read_len, UP.WIRE_DEFAULT, 0)
-    meta_end = w.byte_position
-    TAG.encode_tags(w, tstream, tl, preserve_mask, cap, device)
-    return _finish_semi(w, comp, num_rec, read_len, meta_end, len(tstream))
+    with trace.span("codec.serialize"):
+        w = BitWriter()
+        _put_semi_header(w, comp, num_rec, rpad, read_len, UP.WIRE_DEFAULT,
+                         0)
+        meta_end = w.byte_position
+    with trace.span("codec.tag"):
+        TAG.encode_tags(w, tstream, tl, preserve_mask, cap, device)
+    with trace.span("codec.serialize"):
+        return _finish_semi(w, comp, num_rec, read_len, meta_end,
+                            len(tstream))
 
 
 def parse_semi_block(r: BitReader, tag_cap: int, device) -> dict:
@@ -405,28 +410,32 @@ def parse_semi_block(r: BitReader, tag_cap: int, device) -> dict:
     stream tuples; mode 2 adds tok_meta/pcs/v0 and the title stream (when
     sum(pcs) > 0); mode 0 decodes its tag section here, on `device`
     (titles_np, title_len_np)."""
-    num_rec = r.get_varint()
-    rpad = r.get_varint()
-    read_len = r.get_varint()
-    if rpad < max(1, num_rec) or rpad % 256 or rpad > (1 << 26):
-        raise DsrcException("semi block: bad transmitted lane bucket")
-    wire = _get_wire(r, rpad)
-    qual_mode = r.get_byte()
-    title_mode = r.get_byte()
-    if title_mode not in (0, 2):
-        raise DsrcException(f"semi block: unknown title mode {title_mode}")
-    out = dict(num_rec=num_rec, rpad=rpad, read_len=read_len, wire=wire,
-               mode=title_mode, qual_mode=qual_mode)
+    with trace.span("codec.stage"):
+        num_rec = r.get_varint()
+        rpad = r.get_varint()
+        read_len = r.get_varint()
+        if rpad < max(1, num_rec) or rpad % 256 or rpad > (1 << 26):
+            raise DsrcException("semi block: bad transmitted lane bucket")
+        wire = _get_wire(r, rpad)
+        qual_mode = r.get_byte()
+        title_mode = r.get_byte()
+        if title_mode not in (0, 2):
+            raise DsrcException(
+                f"semi block: unknown title mode {title_mode}")
+        out = dict(num_rec=num_rec, rpad=rpad, read_len=read_len,
+                   wire=wire, mode=title_mode, qual_mode=qual_mode)
     if title_mode == 0:
-        titles_np, title_len_np = TAG.decode_tags(r, num_rec, tag_cap,
-                                                  device)
+        with trace.span("codec.tag"):
+            titles_np, title_len_np = TAG.decode_tags(r, num_rec, tag_cap,
+                                                      device)
         out.update(titles_np=titles_np, title_len_np=title_len_np)
-    else:
-        _parse_value_titles(r, out)
-    out["qual"] = _get_pos_stream(
-        r, num_rec * read_len, read_len, wire.qual_a,
-        rpad // wire.qual_group, wire.qual_group)
-    out["dna"] = _get_dna(r, rpad, read_len)
+    with trace.span("codec.stage"):
+        if title_mode == 2:
+            _parse_value_titles(r, out)
+        out["qual"] = _get_pos_stream(
+            r, num_rec * read_len, read_len, wire.qual_a,
+            rpad // wire.qual_group, wire.qual_group)
+        out["dna"] = _get_dna(r, rpad, read_len)
     return out
 
 
@@ -481,23 +490,31 @@ def decode_parsed_semi(d: dict, device, color_space: bool = False,
     dict carries its decoded titles), decoded on `device`."""
     dev = resolve_device(device)
     num_rec, read_len, rpad = d["num_rec"], d["read_len"], d["rpad"]
-    comp = semi_tok_comp_device(d, dev)
+    with trace.span("codec.stage"):
+        comp = semi_tok_comp_device(d, dev)
+        if d["mode"] == 2:
+            v0 = torch.from_numpy(d["v0"]).to(dev)
+    with trace.span("codec.model"):
+        if d["mode"] == 0:
+            qual_m, seq_m = UP.decompress_semi(comp, read_len, rpad,
+                                               left=True, wire=d["wire"])
+        else:
+            vmat, qual_m, seq_m = UP.decompress_semi_tok(
+                comp, v0, d["pcs"], read_len, rpad, left=True,
+                wire=d["wire"])
     if d["mode"] == 0:
         titles_np, title_len_np = d["titles_np"], d["title_len_np"]
-        qual_m, seq_m = UP.decompress_semi(comp, read_len, rpad, left=True,
-                                           wire=d["wire"])
     else:
-        vmat, qual_m, seq_m = UP.decompress_semi_tok(
-            comp, torch.from_numpy(d["v0"]).to(dev), d["pcs"], read_len,
-            rpad, left=True, wire=d["wire"])
-        titles_np, title_len_np = TAG.render_value_titles(
-            to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
-    return native.layout_records(
-        num_rec, titles_np, title_len_np,
-        to_numpy(seq_m[:num_rec]).reshape(-1),
-        to_numpy(qual_m[:num_rec]).reshape(-1),
-        np.full(num_rec, read_len, np.int64), None, color_space,
-        plus_repetition)
+        with trace.span("codec.tag"):
+            titles_np, title_len_np = TAG.render_value_titles(
+                to_numpy(vmat[:num_rec]), d["tok_meta"], num_rec)
+    with trace.span("codec.serialize"):
+        return native.layout_records(
+            num_rec, titles_np, title_len_np,
+            to_numpy(seq_m[:num_rec]).reshape(-1),
+            to_numpy(qual_m[:num_rec]).reshape(-1),
+            np.full(num_rec, read_len, np.int64), None, color_space,
+            plus_repetition)
 
 
 # --------------------------------------------------------------------------
@@ -596,18 +613,19 @@ class BlockCodec:
         """Compress one block.  index: the block's number in the file, for
         SeedOrder; None when blocks are compressed one at a time, in
         order."""
-        try:
-            if len(block) > self.shape.cap:
-                raise DsrcException("block larger than codec capacity")
-            if self._uniform_eligible():
-                out = self._compress_uniform(block)
-                if out is None:
-                    out = self._compress_semi(block, index)
-                if out is not None:
-                    return out
-            return self._compress_generic(block)
-        finally:
-            self.seed_order.decided(index)
+        with trace.span("codec.compress"):
+            try:
+                if len(block) > self.shape.cap:
+                    raise DsrcException("block larger than codec capacity")
+                if self._uniform_eligible():
+                    out = self._compress_uniform(block)
+                    if out is None:
+                        out = self._compress_semi(block, index)
+                    if out is not None:
+                        return out
+                return self._compress_generic(block)
+            finally:
+                self.seed_order.decided(index)
 
     def _uniform_eligible(self) -> bool:
         st, ds = self.settings, self.dataset
@@ -617,12 +635,15 @@ class BlockCodec:
                 and not ds.color_space and not ds.plus_repetition)
 
     def _compress_uniform(self, block: np.ndarray):
-        staged = stage_uniform_block(block, self.shape.cap, self.device)
+        with trace.span("codec.stage"):
+            staged = stage_uniform_block(block, self.shape.cap, self.device)
         if staged is None:
             return None
         matd, num_rec, spec, rpad = staged
-        comp = UP.compress_uniform(matd, num_rec, spec, rpad)
-        return serialize_uniform_block(comp, spec, num_rec, rpad)
+        with trace.span("codec.model"):
+            comp = UP.compress_uniform(matd, num_rec, spec, rpad)
+        with trace.span("codec.serialize"):
+            return serialize_uniform_block(comp, spec, num_rec, rpad)
 
     def _semi_rpad(self, num_rec: int) -> int:
         """File-wide semi lane bucket: seeded (with one bucket of headroom)
@@ -712,53 +733,66 @@ class BlockCodec:
         order = self.seed_order
         if self._rpad_hint == 0:
             order.wait_for_earlier(index)
-        staged = stage_semi_raw(block, self._rpad_hint)
+        with trace.span("codec.stage"):
+            staged = stage_semi_raw(block, self._rpad_hint)
         if staged is None:
             order.decided(index)
             return None
         read_len, num_rec, qm_a, sm_a, tstream, tl = staged
         rpad = self._semi_rpad(num_rec)
-        tok = TAG.analyze_value_fields(np.asarray(tstream, np.uint8),
-                                       np.asarray(tl))
+        with trace.span("codec.tag"):
+            tok = TAG.analyze_value_fields(np.asarray(tstream, np.uint8),
+                                           np.asarray(tl))
         dev = self.device
-        qm = torch.from_numpy(np.ascontiguousarray(qm_a[:rpad])).to(dev)
-        sm = torch.from_numpy(np.ascontiguousarray(sm_a[:rpad])).to(dev)
+        with trace.span("codec.stage"):
+            qm = torch.from_numpy(np.ascontiguousarray(qm_a[:rpad])).to(dev)
+            sm = torch.from_numpy(np.ascontiguousarray(sm_a[:rpad])).to(dev)
         if tok is None or tok[0].shape[1] > 16:
             order.decided(index)
-            comp = UP.compress_semi(qm, sm, num_rec, read_len)
+            with trace.span("codec.model"):
+                comp = UP.compress_semi(qm, sm, num_rec, read_len)
             return serialize_semi0_block(
                 comp, num_rec, rpad, read_len, tstream, tl,
                 self.settings.tag_preserve_mask, self.shape.cap, dev)
         vmat, tok_meta = tok
         if not self._hints_frozen:
             order.wait_for_earlier(index)
-        v0, pcs = semi_tok_planes(vmat, num_rec, self._semi_pcs_hint())
+        with trace.span("codec.tag"):
+            v0, pcs = semi_tok_planes(vmat, num_rec, self._semi_pcs_hint())
         order.decided(index)
-        vpad = np.zeros((rpad, vmat.shape[1]), np.int32)
-        vpad[:num_rec] = vmat
-        comp = UP.compress_semi_tok(
-            torch.from_numpy(vpad).to(dev), torch.from_numpy(v0).to(dev),
-            qm, sm, num_rec, pcs, read_len, rpad)
-        return serialize_semi_tok_block(comp, num_rec, rpad, read_len, pcs,
-                                        v0, tok_meta, len(tstream))
+        with trace.span("codec.stage"):
+            vpad = np.zeros((rpad, vmat.shape[1]), np.int32)
+            vpad[:num_rec] = vmat
+            vpad_d = torch.from_numpy(vpad).to(dev)
+            v0_d = torch.from_numpy(v0).to(dev)
+        with trace.span("codec.model"):
+            comp = UP.compress_semi_tok(vpad_d, v0_d, qm, sm, num_rec, pcs,
+                                        read_len, rpad)
+        with trace.span("codec.serialize"):
+            return serialize_semi_tok_block(comp, num_rec, rpad, read_len,
+                                            pcs, v0, tok_meta, len(tstream))
 
     # -------------------------------------------------- decompress
     def decompress(self, blob: bytes) -> np.ndarray:
-        r = BitReader(blob)
-        scheme = r.get_byte()
-        if scheme == BLOCK_UNIFORM:
-            return self._decompress_uniform(r)
-        if scheme == BLOCK_SEMI:
-            return self._decompress_semi(r)
-        if scheme == BLOCK_GENERIC:
-            return self._decompress_generic(r)
-        raise DsrcException(f"bad block scheme {scheme}")
+        with trace.span("codec.decompress"):
+            r = BitReader(blob)
+            scheme = r.get_byte()
+            if scheme == BLOCK_UNIFORM:
+                return self._decompress_uniform(r)
+            if scheme == BLOCK_SEMI:
+                return self._decompress_semi(r)
+            if scheme == BLOCK_GENERIC:
+                return self._decompress_generic(r)
+            raise DsrcException(f"bad block scheme {scheme}")
 
     def _decompress_uniform(self, r: BitReader) -> np.ndarray:
         from ..convert import comp_from_numpy
-        comp_np, spec, num_rec, rpad, wire = read_uniform_block(r)
-        comp = comp_from_numpy(comp_np, self.device)
-        mat = UP.decompress_uniform(comp, spec, rpad, left=True, wire=wire)
+        with trace.span("codec.stage"):
+            comp_np, spec, num_rec, rpad, wire = read_uniform_block(r)
+            comp = comp_from_numpy(comp_np, self.device)
+        with trace.span("codec.model"):
+            mat = UP.decompress_uniform(comp, spec, rpad, left=True,
+                                        wire=wire)
         return to_numpy(mat[:num_rec]).reshape(-1)
 
     def _decompress_semi(self, r: BitReader) -> np.ndarray:
@@ -778,62 +812,69 @@ class BlockCodec:
         device stream is dropped once its last reader has run."""
         sh, st, ds = self.shape, self.settings, self.dataset
         dev = self.device
-        nbytes = len(block)
-        block = np.asarray(block, np.uint8)
-        data = torch.from_numpy(block if block.flags.writeable
-                                else block.copy()).to(dev)
-        parsed = P.parse_block(data, nbytes, sh.rcap)
-        if not bool(parsed.valid):
-            raise DsrcException("Error parsing FASTQ block (bad structure)")
-        num_rec = int(parsed.num_records)
-        seq_len_np = to_numpy(parsed.seq_len)[:num_rec]
-        qual_len_np = to_numpy(parsed.qual_len)[:num_rec].astype(np.int64)
-        seq_start, seq_len = parsed.seq_start, parsed.seq_len
-        primers = None
-        if ds.color_space:
-            # a primer base, then one colour digit per quality value
-            if not (seq_len_np == qual_len_np + 1).all():
-                raise DsrcException("color-space length mismatch")
-            primers = to_numpy(T.take_clip(data, seq_start))[:num_rec]
-            seq_start = seq_start + 1
-            seq_len = (seq_len - 1).clamp_(min=0)
-        elif not (seq_len_np == qual_len_np).all():
-            raise DsrcException("sequence/quality length mismatch")
-        titles, t_total, _ = P.gather_stream(data, parsed.title_start,
-                                             parsed.title_len, sh.cap)
-        titles = titles[:max(t_total, 1)].to("cpu", copy=True).numpy()
-        seqs, s_total, _ = P.gather_stream(data, seq_start, seq_len, sh.cap)
-        quals, q_total, _ = P.gather_stream(data, parsed.qual_start,
-                                            parsed.qual_len, sh.cap)
-        del data, seq_start, seq_len
-        crcs = None
-        if st.calculate_crc32:
-            # colour space: the sequence stream holds no primer
-            crcs = (crc32(titles[:t_total]), crc32(to_numpy(seqs[:s_total])),
-                    crc32(to_numpy(quals[:q_total])))
-
-        # Per-block quality offset: a block with a quality byte below the
-        # dataset offset (from the first block) falls back to offset 33 and
-        # transmits it, so every block stays exactly reversible
-        # (dsrc_tpu/models/block.py:813-833).
-        offset = ds.quality_offset
-        if q_total:
-            qmin = int(quals[:q_total].min())
-            qmax = int(quals[:q_total].max())
-            if qmin < offset:
-                offset = 33
-            if qmin < offset or qmax - offset >= T.FOLD_BASE:
+        with trace.span("codec.stage"):
+            nbytes = len(block)
+            block = np.asarray(block, np.uint8)
+            data = torch.from_numpy(block if block.flags.writeable
+                                    else block.copy()).to(dev)
+            parsed = P.parse_block(data, nbytes, sh.rcap)
+            if not item(parsed.valid):
                 raise DsrcException(
-                    f"quality bytes span [{qmin}, {qmax}] — outside the "
-                    f"reversible range for any FASTQ offset")
+                    "Error parsing FASTQ block (bad structure)")
+            num_rec = item(parsed.num_records)
+            seq_len_np = to_numpy(parsed.seq_len)[:num_rec]
+            qual_len_np = to_numpy(parsed.qual_len)[:num_rec] \
+                .astype(np.int64)
+            seq_start, seq_len = parsed.seq_start, parsed.seq_len
+            primers = None
+            if ds.color_space:
+                # a primer base, then one colour digit per quality value
+                if not (seq_len_np == qual_len_np + 1).all():
+                    raise DsrcException("color-space length mismatch")
+                primers = to_numpy(T.take_clip(data, seq_start))[:num_rec]
+                seq_start = seq_start + 1
+                seq_len = (seq_len - 1).clamp_(min=0)
+            elif not (seq_len_np == qual_len_np).all():
+                raise DsrcException("sequence/quality length mismatch")
+            titles, t_total, _ = P.gather_stream(data, parsed.title_start,
+                                                 parsed.title_len, sh.cap)
+            titles = to_numpy(titles[:max(t_total, 1)], copy=True)
+            seqs, s_total, _ = P.gather_stream(data, seq_start, seq_len,
+                                               sh.cap)
+            quals, q_total, _ = P.gather_stream(data, parsed.qual_start,
+                                                parsed.qual_len, sh.cap)
+            del data, seq_start, seq_len
+            crcs = None
+            if st.calculate_crc32:
+                # colour space: the sequence stream holds no primer
+                crcs = (crc32(titles[:t_total]),
+                        crc32(to_numpy(seqs[:s_total])),
+                        crc32(to_numpy(quals[:q_total])))
+
+            # Per-block quality offset: a block with a quality byte below
+            # the dataset offset (from the first block) falls back to offset
+            # 33 and transmits it, so every block stays exactly reversible
+            # (dsrc_tpu/models/block.py:813-833).
+            offset = ds.quality_offset
+            if q_total:
+                qmin = item(quals[:q_total].min())
+                qmax = item(quals[:q_total].max())
+                if qmin < offset:
+                    offset = 33
+                if qmin < offset or qmax - offset >= T.FOLD_BASE:
+                    raise DsrcException(
+                        f"quality bytes span [{qmin}, {qmax}] — outside "
+                        f"the reversible range for any FASTQ offset")
+            title_len_np = to_numpy(parsed.title_len)[:num_rec]
         forward = _forward_transform_cs if ds.color_space \
             else _forward_transform
-        dna, dna_total, qvals = forward(seqs, quals, s_total, offset, sh.cap,
-                                        st.lossy_quality)
+        with trace.span("codec.model"):
+            dna, dna_total, qvals = forward(seqs, quals, s_total, offset,
+                                            sh.cap, st.lossy_quality)
         return GenericStreams(
-            num_rec, qual_len_np, parsed.qual_len,
-            to_numpy(parsed.title_len)[:num_rec], titles, t_total, s_total,
-            q_total, offset, dna, dna_total, qvals, primers, crcs)
+            num_rec, qual_len_np, parsed.qual_len, title_len_np, titles,
+            t_total, s_total, q_total, offset, dna, dna_total, qvals,
+            primers, crcs)
 
     def _compress_generic(self, block: np.ndarray
                           ) -> Tuple[bytes, StreamsInfo]:
@@ -841,31 +882,35 @@ class BlockCodec:
         g = self.stage_generic(block)
         num_rec, offset = g.num_rec, g.offset
         dev = self.device
-        w = BitWriter()
-        w.put_byte(BLOCK_GENERIC)
-        flags = (FLAG_CRC if st.calculate_crc32 else 0) | \
-            (FLAG_COLOR_SPACE if ds.color_space else 0) | \
-            (FLAG_PLUS_REP if ds.plus_repetition else 0)
-        w.put_varint(num_rec)
-        w.put_byte(flags)
-        w.put_byte(offset)
-        pack_ints(w, g.qual_len)
-        if ds.color_space:
-            pack_ints(w, g.primers.astype(np.int64))
-        if g.crcs is not None:
-            for c in g.crcs:
-                w.put_uint32(c)
-        meta_end = w.byte_position
-        TAG.encode_tags(w, g.titles, g.title_len, st.tag_preserve_mask,
-                        sh.cap, dev)
+        with trace.span("codec.serialize"):
+            w = BitWriter()
+            w.put_byte(BLOCK_GENERIC)
+            flags = (FLAG_CRC if st.calculate_crc32 else 0) | \
+                (FLAG_COLOR_SPACE if ds.color_space else 0) | \
+                (FLAG_PLUS_REP if ds.plus_repetition else 0)
+            w.put_varint(num_rec)
+            w.put_byte(flags)
+            w.put_byte(offset)
+            pack_ints(w, g.qual_len)
+            if ds.color_space:
+                pack_ints(w, g.primers.astype(np.int64))
+            if g.crcs is not None:
+                for c in g.crcs:
+                    w.put_uint32(c)
+            meta_end = w.byte_position
+        with trace.span("codec.tag"):
+            TAG.encode_tags(w, g.titles, g.title_len, st.tag_preserve_mask,
+                            sh.cap, dev)
         tag_end = w.byte_position
         hash_val = (HASH_CHAR - offset) if (
             not st.lossy_quality and 0 <= HASH_CHAR - offset < 256) else -1
-        q_scheme = Q.encode_quality(w, g.qvals, g.q_total, g.qual_len_d,
-                                    num_rec, st.quality_order, hash_val)
-        qual_end = w.byte_position
-        hist = to_numpy(DNA.dna_stats(g.dna, g.dna_total, sh.cap))
-        d_scheme = DNA.encode_dna(w, g.dna, g.dna_total, st.dna_order, hist)
+        with trace.span("codec.model"):
+            q_scheme = Q.encode_quality(w, g.qvals, g.q_total, g.qual_len_d,
+                                        num_rec, st.quality_order, hash_val)
+            qual_end = w.byte_position
+            hist = to_numpy(DNA.dna_stats(g.dna, g.dna_total, sh.cap))
+            d_scheme = DNA.encode_dna(w, g.dna, g.dna_total, st.dna_order,
+                                      hist)
         blob = w.getvalue()
         info = StreamsInfo()
         info.raw.update(tag=g.t_total, dna=g.s_total, quality=g.q_total)
@@ -877,37 +922,45 @@ class BlockCodec:
     def _decompress_generic(self, r: BitReader) -> np.ndarray:
         sh, st, ds = self.shape, self.settings, self.dataset
         dev = self.device
-        num_rec = r.get_varint()
-        flags = r.get_byte()
-        offset = r.get_byte()
-        qual_len_np = unpack_ints(r).astype(np.int64)
-        if num_rec > sh.rcap or len(qual_len_np) != num_rec:
-            raise DsrcException("generic block: bad record count")
-        primers = None
-        if flags & FLAG_COLOR_SPACE:
-            primers = unpack_ints(r).astype(np.uint8)
-            if len(primers) != num_rec:
-                raise DsrcException("generic block: bad primer count")
-        elif ds.color_space:
-            raise DsrcException("colour-space archive block without primers")
-        crcs = None
-        if flags & FLAG_CRC:
-            crcs = (r.get_uint32(), r.get_uint32(), r.get_uint32())
-        titles_np, title_len_np = TAG.decode_tags(r, num_rec, sh.cap, dev)
+        with trace.span("codec.stage"):
+            num_rec = r.get_varint()
+            flags = r.get_byte()
+            offset = r.get_byte()
+            qual_len_np = unpack_ints(r).astype(np.int64)
+            if num_rec > sh.rcap or len(qual_len_np) != num_rec:
+                raise DsrcException("generic block: bad record count")
+            primers = None
+            if flags & FLAG_COLOR_SPACE:
+                primers = unpack_ints(r).astype(np.uint8)
+                if len(primers) != num_rec:
+                    raise DsrcException("generic block: bad primer count")
+            elif ds.color_space:
+                raise DsrcException(
+                    "colour-space archive block without primers")
+            crcs = None
+            if flags & FLAG_CRC:
+                crcs = (r.get_uint32(), r.get_uint32(), r.get_uint32())
+            qlen_pad = torch.from_numpy(np.pad(
+                qual_len_np, (0, sh.rcap - num_rec)).astype(np.int32)).to(dev)
+        with trace.span("codec.tag"):
+            titles_np, title_len_np = TAG.decode_tags(r, num_rec, sh.cap,
+                                                      dev)
         hash_val = (HASH_CHAR - offset) if (
             not st.lossy_quality and 0 <= HASH_CHAR - offset < 256) else -1
-        qlen_pad = torch.from_numpy(np.pad(
-            qual_len_np, (0, sh.rcap - num_rec)).astype(np.int32)).to(dev)
-        qvals, q_total = Q.decode_quality(r, sh.cap, qlen_pad, num_rec,
-                                          st.quality_order, hash_val)
-        dna, _ = DNA.decode_dna(r, sh.cap, st.dna_order, dev)
         backward = _backward_transform_cs if ds.color_space \
             else _backward_transform
-        seq, qual = backward(dna, qvals, q_total, offset, st.lossy_quality)
-        del dna, qvals
-        text = native.layout_records(
-            num_rec, titles_np, title_len_np, to_numpy(seq), to_numpy(qual),
-            qual_len_np, primers, ds.color_space, ds.plus_repetition)
+        with trace.span("codec.model"):
+            qvals, q_total = Q.decode_quality(r, sh.cap, qlen_pad, num_rec,
+                                              st.quality_order, hash_val)
+            dna, _ = DNA.decode_dna(r, sh.cap, st.dna_order, dev)
+            seq, qual = backward(dna, qvals, q_total, offset,
+                                 st.lossy_quality)
+            del dna, qvals
+        with trace.span("codec.serialize"):
+            text = native.layout_records(
+                num_rec, titles_np, title_len_np, to_numpy(seq),
+                to_numpy(qual), qual_len_np, primers, ds.color_space,
+                ds.plus_repetition)
         if crcs is not None:
             got = _stream_crcs_from_text(text, ds)
             if got != crcs:

@@ -26,7 +26,7 @@ from ..ops import ctx as C
 from ..ops.ctx_kernels import MODE_QUALITY, CtxMode, coarse_ctx
 from ..ops.rans import lane_active, lane_lengths, lane_merge, lane_split
 from ..ops.rans_kernels import rans_encode_from_freqs
-from ..ops.streams import (deserialize_rans, pack_ints, serialize_rans,
+from ..ops.streams import (deserialize_rans, item, pack_ints, serialize_rans,
                            stream_tensors, to_numpy, unpack_ints)
 from ..ops.transform import (compact, expand_positions, histogram, pad_to,
                              segment_max, take_clip)
@@ -129,7 +129,7 @@ def quality_stats(qvals: torch.Tensor, n: int, lengths: torch.Tensor,
                                  device=qvals.device) >= num_rec, 0)
     new_run = pos_of == 0
     new_run[1:] |= q[1:] != q[:-1]
-    return quality_hist(qvals, n), int(new_run.sum()), tl
+    return quality_hist(qvals, n), item(new_run.sum()), tl
 
 
 # --------------------------------------------------------------------------
@@ -174,7 +174,7 @@ def _bucket(pos: torch.Tensor, rlen: torch.Tensor) -> torch.Tensor:
     was; the product is int32 while the longest record allows it."""
     rlen = rlen.clamp_(min=1)
     pos = torch.minimum(pos, rlen, out=pos)
-    if int(rlen.max()) * POS_BUCKETS >= 2**31:
+    if item(rlen.max()) * POS_BUCKETS >= 2**31:
         pos, rlen = pos.to(torch.int64), rlen.to(torch.int64)
     pos.mul_(POS_BUCKETS).div_(rlen, rounding_mode="floor")
     return pos.clamp_(max=POS_BUCKETS - 1).to(torch.uint8)
@@ -309,7 +309,7 @@ def _expand_runs(run_syms: torch.Tensor, run_lens: torch.Tensor,
     -> (stream [min(total, cap)], total)."""
     lens = run_lens[:n_runs].to(torch.int32).add_(1)
     cum = torch.cumsum(lens, 0, dtype=torch.int32)
-    total = int(cum[-1]) if n_runs else 0
+    total = item(cum[-1]) if n_runs else 0
     j = torch.arange(min(total, cap), dtype=torch.int32,
                      device=run_syms.device)
     rid = torch.searchsorted(cum, j, right=True, out_int32=True)
@@ -396,7 +396,7 @@ def encode_quality(w: BitWriter, qvals: torch.Tensor, n: int,
     if order >= 1:
         scheme = QS_CTX
     else:
-        th_total = int(trunc.sum())
+        th_total = item(trunc.sum())
         if nr and th_total / max(2 * nr, 1) > 1.25:
             scheme = QS_RLE
         elif th_total and n / th_total > 1.10 and 0 <= hash_val < 256:
@@ -491,7 +491,7 @@ def decode_quality(r: BitReader, cap: int, lengths: torch.Tensor,
         lut = np.zeros(256, np.int32)
         lut[present] = np.arange(len(present))
         hash_dense = int(lut[hash_val]) if 0 <= hash_val < 256 else 0
-        n = int(lengths[:num_rec].sum())
+        n = item(lengths[:num_rec].sum())
         dense = _untruncate_stream(tdense[:nc], lengths, trunc, n,
                                    hash_dense)
         del tdense
@@ -516,4 +516,4 @@ def decode_quality(r: BitReader, cap: int, lengths: torch.Tensor,
     m = min(n, cap)
     torch.index_select(torch.from_numpy(inv).to(dev), 0,
                        dense[:m].clamp_(0, a_pad - 1), out=qvals[:m])
-    return qvals, int(n)
+    return qvals, int(item(n))

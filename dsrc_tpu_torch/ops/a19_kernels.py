@@ -30,6 +30,7 @@ import torch
 from ..config import DsrcException
 from .rans import M, MASK, PROB_BITS, RANS_L
 from .rans_kernels import LAUNCHES, _check, _entry, _stream
+from .streams import to_numpy
 
 NSYM = 19
 # lanes a block of K4 decodes (its other threads only build the table):
@@ -46,9 +47,7 @@ def table_fields(freqs: Freqs) -> Tuple[int, ...]:
     """The 19 frequency fields as host ints; raises unless each lies in
     [0, 2^14), what the archive's 14-bit fields can carry.  (A tensor on
     the card is read back: callers pass the host's table.)"""
-    if isinstance(freqs, torch.Tensor):
-        freqs = freqs.tolist()
-    fields = tuple(int(v) for v in np.asarray(freqs).reshape(-1))
+    fields = tuple(int(v) for v in to_numpy(freqs).reshape(-1))
     if len(fields) != NSYM:
         raise DsrcException(f"a19_decode: {len(fields)} frequency fields, "
                             f"expected {NSYM}")

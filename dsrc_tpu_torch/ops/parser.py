@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from .streams import item
 from .transform import take_clip
 
 NEWLINE = 10
@@ -100,7 +101,7 @@ def gather_stream(data: torch.Tensor, starts: torch.Tensor,
     computed: every capacity is below 2^31 (models/block.BlockShape)."""
     cum = torch.cumsum(lens, 0, dtype=torch.int32)
     offsets = cum - lens
-    total = min(int(cum[-1]), total_cap) if lens.shape[0] else 0
+    total = min(item(cum[-1]), total_cap) if lens.shape[0] else 0
     out = torch.zeros(total_cap, dtype=torch.uint8, device=data.device)
     if total:
         j = torch.arange(total, dtype=torch.int32, device=data.device)
@@ -118,7 +119,7 @@ def scatter_stream(stream: torch.Tensor, offsets: torch.Tensor,
     """Inverse of gather_stream: stream[offsets[r]:offsets[r]+lens[r]]
     written at dst_starts[r] of a zeroed uint8 [cap]."""
     cum = torch.cumsum(lens, 0, dtype=torch.int32)
-    total = min(int(cum[-1]), stream.shape[0]) if lens.shape[0] else 0
+    total = min(item(cum[-1]), stream.shape[0]) if lens.shape[0] else 0
     out = torch.zeros(cap + 1, dtype=torch.uint8, device=stream.device)
     if total:
         j = torch.arange(total, dtype=torch.int32, device=stream.device)
@@ -144,7 +145,7 @@ def analyze_block(data: torch.Tensor, parsed: ParsedBlock) -> dict:
     # live records (a host sync for their count): +1 at each range's start,
     # -1 at its end; slot n takes ends at the last byte.  The int8 running
     # sum stays in {0, 1}: a block's quality ranges are disjoint.
-    nrec = int(parsed.num_records)
+    nrec = item(parsed.num_records)
     qs = parsed.qual_start[:nrec].clamp(max=n)
     qe = (parsed.qual_start[:nrec] + parsed.qual_len[:nrec]).clamp_(max=n)
     edge = torch.zeros(n + 1, dtype=torch.int8, device=dev)

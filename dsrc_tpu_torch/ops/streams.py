@@ -18,15 +18,28 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.bitio import BitReader, BitWriter
 from ..utils.npbits import np_pack_fixed, np_unpack_fixed
 
 
-def to_numpy(x) -> np.ndarray:
-    """Host numpy view of a tensor (any device) or array-like."""
+def to_numpy(x, copy: bool = False) -> np.ndarray:
+    """Host numpy view of a tensor (any device) or array-like; copy: a
+    copy also of a host tensor.  A tensor's read is one codec.sync of the
+    recorder (utils/trace.py)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with trace.sync(x):
+            return x.detach().to("cpu", copy=copy).numpy()
     return np.asarray(x)
+
+
+def item(x):
+    """The Python number of a one-element tensor (any device; one
+    codec.sync of the recorder), or x itself."""
+    if isinstance(x, torch.Tensor):
+        with trace.sync(x):
+            return x.item()
+    return x
 
 
 def _payload_tail(payload, nwords: np.ndarray) -> np.ndarray:

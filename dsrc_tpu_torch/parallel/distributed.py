@@ -32,6 +32,7 @@ from ..io.archive import HEADER_SIZE, finalize_archive
 from ..io.chunker import FastqChunker
 from ..models.block import BlockCodec, BlockShape
 from ..parallel.pipeline import ordered_parallel_map
+from ..utils import trace
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -128,12 +129,16 @@ def compress_distributed(fastq_path: str, dsrc_path: str,
     codec.set_semi_hints(*file_hint_seeds(
         all_gather(own_hint_seeds(codec, mine))))
 
+    root = trace.current()
+
     def job(block):
-        blob, _info = codec.compress(block)
-        if settings.calculate_crc32 and not codec.verify_checksum(blob):
-            raise DsrcException("CRC32 verification failed while "
-                                "compressing")
-        return blob
+        with trace.span("block", len(block), under=root):
+            blob, _info = codec.compress(block)
+            if settings.calculate_crc32 and \
+                    not codec.verify_checksum(blob):
+                raise DsrcException("CRC32 verification failed while "
+                                    "compressing")
+            return blob
 
     # the hints are seeded: no block waits for another, in any order
     own = sorted(mine)

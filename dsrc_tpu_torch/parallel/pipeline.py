@@ -20,6 +20,7 @@ import threading
 from typing import Callable, Iterator, Optional
 
 from ..config import DsrcException
+from ..utils import trace
 
 _STOP = object()
 
@@ -104,7 +105,8 @@ def ordered_parallel_map(items: Iterator, fn: Callable, num_workers: int,
     stops = 0
     try:
         while stops < num_workers:
-            got = outq.get()
+            with trace.span("api.wait"):
+                got = outq.get()
             if got is _STOP:
                 stops += 1
                 continue

@@ -27,6 +27,7 @@ import torch
 from ..ops.hist_kernels import pos_hist
 from ..ops.rans import cum_from_freqs, quantize_counts
 from ..ops.rans_kernels import rans_decode, rans_encode_from_freqs
+from ..ops.streams import item
 
 QUAL_A = 64
 TITLE_A = 128
@@ -83,7 +84,7 @@ def check_uniform(mat: torch.Tensor, spec: UniformSpec, num_rec: int) -> bool:
            | (seq == ord("T")) | (seq == ord("N"))).all()
     qual = m[:, q0:q1]
     ok &= ((qual >= 33) & (qual < 33 + QUAL_A)).all()
-    return bool(ok)
+    return bool(item(ok))
 
 
 # --------------------------------------------------------------------------
