@@ -22,7 +22,8 @@ Options (compression):
   -v     verbose: per-stream sizes (c), then the recorder's spans
          (dsrc_tpu_torch/utils/trace.py): each span's self seconds
          summed over threads, count and MB; the device-to-host reads;
-         whether native/libdsrc_host.so served the host
+         whether the native host library served the host, and
+         the file it was loaded from
 
 Options (decompression):
   -r<N:M>  extract only records [N, M) (0-based) via the block index
@@ -116,8 +117,9 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         if params.verbose:
             for line in trace.table(rec):
                 print("  " + line, file=sys.stderr)
+            lib = native.path()
             print("  native host library: " + (
-                "loaded" if native.available() else "numpy fallbacks"),
+                f"loaded ({lib})" if lib else "numpy fallbacks"),
                 file=sys.stderr)
     except DsrcException as e:
         print(f"Error: {e}", file=sys.stderr)

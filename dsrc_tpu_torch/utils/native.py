@@ -1,65 +1,134 @@
 """ctypes bindings for the native host library (native/host_ops.cpp).
 
-Loads native/libdsrc_host.so when present (build with `make -C native`);
-every entry point has a numpy fallback so the package works without the
-native build.  pybind11 is not available in this image, hence plain C ABI.
+The library is built at first use, as ops/cuda_build.py builds the CUDA
+kernels: g++ compiles native/host_ops.cpp into build/dsrc_tpu_torch/ beside
+the package (a directory .gitignore lists), named by a hash of the source
+and the flags, so a changed source is never served by a stale library.
+A file lock makes one process of many build it, and the build writes a
+temporary name that os.replace renames, so no process loads a half-written
+library.  Every entry point has a numpy fallback that gives the same bytes;
+without g++, or when the build fails, the fallbacks serve, and each call
+they serve counts `native.fallback` on the recorder (utils/trace.py).
+The library has a plain C ABI, bound by ctypes: its build needs no Python
+or PyTorch headers.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
+from . import trace
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(_ROOT, "native", "host_ops.cpp")
+BUILD_DIR = os.path.join(_ROOT, "build", "dsrc_tpu_torch")
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+FALLBACK = "native.fallback"
+
+_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_PATH: Optional[str] = None
+_TRIED = False
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    path = os.path.join(root, "native", "libdsrc_host.so")
-    if not os.path.exists(path):
-        return None
+def lib_path() -> str:
+    """The library's path, named by a hash of its source and the flags."""
+    with open(SOURCE, "rb") as f:
+        h = hashlib.sha1(f.read())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libdsrc_host-{h.hexdigest()[:12]}.so")
+
+
+def _compiler() -> Optional[str]:
+    return shutil.which("g++")
+
+
+def build() -> Optional[str]:
+    """The library's path, compiled first when it is missing; None when
+    there is no g++ or the build fails."""
     try:
-        lib = ctypes.CDLL(path)
-    except OSError:
+        out = lib_path()
+        if os.path.exists(out):
+            return out
+        cxx = _compiler()
+        if cxx is None:
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(out + ".lock", "wb") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(out):
+                tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+                try:
+                    subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+                                   check=True, capture_output=True)
+                    os.replace(tmp, out)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+    except (OSError, subprocess.CalledProcessError):
         return None
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u16p = ctypes.POINTER(ctypes.c_uint16)
+    i64p = ctypes.POINTER(ctypes.c_int64)
     i64 = ctypes.c_int64
     lib.dsrc_scan_records.restype = i64
-    lib.dsrc_scan_records.argtypes = [u8p, i64, i64,
-                                      ctypes.POINTER(ctypes.c_int64)]
-    lib.dsrc_pack2.restype = None
-    lib.dsrc_pack2.argtypes = [u8p, i64, u8p]
-    lib.dsrc_unpack2.restype = None
-    lib.dsrc_unpack2.argtypes = [u8p, i64, u8p]
+    lib.dsrc_scan_records.argtypes = [u8p, i64, i64, i64p]
     lib.dsrc_compact_payload.restype = i64
     lib.dsrc_compact_payload.argtypes = [i32p, i64, i64, i32p, u16p]
     lib.dsrc_compact_payload_right.restype = i64
     lib.dsrc_compact_payload_right.argtypes = [i32p, i64, i64, i32p, u16p]
     lib.dsrc_expand_payload.restype = None
     lib.dsrc_expand_payload.argtypes = [u16p, i64, i64, i32p, i32p]
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    if hasattr(lib, "dsrc_stage_semi"):
-        lib.dsrc_stage_semi.restype = i64
-        lib.dsrc_stage_semi.argtypes = [u8p, i64, i64, i64, u8p, u8p,
-                                        u8p, i64p]
-        lib.dsrc_layout_records.restype = i64
-        lib.dsrc_layout_records.argtypes = [
-            i64, u8p, i64p, u8p, u8p, i64p, u8p,
-            ctypes.c_int32, ctypes.c_int32, u8p]
-    _LIB = lib
-    return lib
+    lib.dsrc_stage_semi.restype = i64
+    lib.dsrc_stage_semi.argtypes = [u8p, i64, i64, i64, u8p, u8p, u8p, i64p]
+    lib.dsrc_layout_records.restype = i64
+    lib.dsrc_layout_records.argtypes = [
+        i64, u8p, i64p, u8p, u8p, i64p, u8p,
+        ctypes.c_int32, ctypes.c_int32, u8p]
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The loaded library, built at the first call of the process; None
+    (every later call too) when it could not be built or loaded."""
+    global _LIB, _PATH, _TRIED
+    if _TRIED:
+        return _LIB
+    with _LOCK:
+        if not _TRIED:
+            path = build()
+            try:
+                lib = ctypes.CDLL(path) if path else None
+                if lib is not None:
+                    _bind(lib)
+            except (OSError, AttributeError):
+                lib = None
+            _LIB, _PATH = lib, path if lib is not None else None
+            _TRIED = True
+    return _LIB
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def path() -> Optional[str]:
+    """The loaded library's file (None: the numpy fallbacks serve)."""
+    _load()
+    return _PATH
 
 
 def _u8(a: np.ndarray):
@@ -70,6 +139,7 @@ def scan_records(buf: np.ndarray, lines_before: int) -> Tuple[int, int]:
     """(newline_count, cut_position_after_last_boundary_or_-1)."""
     lib = _load()
     if lib is None:
+        trace.count(FALLBACK)
         nl_pos = np.flatnonzero(buf == 10)
         n = len(nl_pos)
         if n == 0:
@@ -96,6 +166,7 @@ def compact_payload(payload: np.ndarray, nwords: np.ndarray,
     total = int(nwords.sum())
     w_max = payload.shape[1]
     if lib is None:
+        trace.count(FALLBACK)
         cols = np.arange(w_max)[None, :]
         if right_aligned:
             mask = cols >= (w_max - nwords[:, None])
@@ -119,6 +190,7 @@ def expand_payload(words: np.ndarray, nwords: np.ndarray,
     nwords = np.ascontiguousarray(nwords, np.int32)
     l = len(nwords)
     if lib is None:
+        trace.count(FALLBACK)
         payload = np.zeros((l, w_max), np.int32)
         mask = np.arange(w_max)[None, :] < nwords[:, None]
         payload[mask] = words
@@ -148,7 +220,7 @@ def stage_semi(buf: np.ndarray, read_len: int, rpad: int):
     n = len(b)
     if not (0 < read_len <= 8192) or n == 0 or b[-1] != 10:
         return None
-    if lib is not None and hasattr(lib, "dsrc_stage_semi"):
+    if lib is not None:
         qm = np.zeros((rpad, read_len), np.uint8)
         sm = np.zeros((rpad, read_len), np.uint8)
         tbuf = np.empty(n, np.uint8)
@@ -160,6 +232,7 @@ def stage_semi(buf: np.ndarray, read_len: int, rpad: int):
         total = int(tlens[:rec].sum())
         return qm, sm, tbuf[:total], tlens[:rec], int(rec)
     # numpy fallback: the vectorized multi-pass equivalent
+    trace.count(FALLBACK)
     nl = np.flatnonzero(b == 10)
     if len(nl) == 0 or len(nl) % 4 or len(nl) // 4 > rpad:
         return None
@@ -206,7 +279,7 @@ def layout_records(num_rec: int, titles: np.ndarray, title_lens: np.ndarray,
     plus_extra = tl if plus_rep else np.zeros_like(tl)
     total = int((1 + tl + 1 + sl + 1 + 1 + plus_extra + 1 + ql + 1).sum())
     lib = _load()
-    if lib is not None and hasattr(lib, "dsrc_layout_records"):
+    if lib is not None:
         titles = np.ascontiguousarray(titles, np.uint8)
         seq = np.ascontiguousarray(seq, np.uint8)
         qual = np.ascontiguousarray(qual, np.uint8)
@@ -220,6 +293,7 @@ def layout_records(num_rec: int, titles: np.ndarray, title_lens: np.ndarray,
         assert wrote == total
         return out
     # numpy fallback: vectorized scatters
+    trace.count(FALLBACK)
     rec_len = 1 + tl + 1 + sl + 1 + 1 + plus_extra + 1 + ql + 1
     starts = np.concatenate([[0], np.cumsum(rec_len)[:-1]]).astype(np.int64)
     out = np.zeros(total, np.uint8)

@@ -40,6 +40,12 @@ The names, at the layer boundaries of the port:
 The codec.stage, .tag, .model and .serialize spans of one block do not
 nest in one another.  The syncs are the count and bytes of codec.sync.
 
+A count (`count(name)`) has no duration and is not a span: it adds to its
+name's count in the totals, under the call of the span open on its thread,
+and shows in table() with no time.  The counts:
+
+  native.fallback  a call of utils/native.py served by its numpy fallback
+
 Clock: start() takes one (perf_counter_ns, time_ns) pair, `anchor`.  A
 Chrome trace exported by torch.profiler (Kineto) stamps its events in
 wall-clock microseconds less its `baseTimeNanoseconds`, so
@@ -222,6 +228,18 @@ def sync(t):
     return _Open(SYNC, t.nelement() * t.element_size(), -1, None)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add n to the count of `name` (no duration, not a span)."""
+    if not _on:
+        return
+    buf = _buffer()
+    key = (buf.stack[-1].op if buf.stack else 0, name)
+    tot = buf.totals.get(key)
+    if tot is None:
+        tot = buf.totals[key] = [0, 0, 0, 0]
+    tot[2] += n
+
+
 def current():
     """The innermost span open on this thread (None: none, or the recorder
     is off), to pass as `under=` to work handed to other threads."""
@@ -302,7 +320,7 @@ def trace_us(t_ns: int, anchor: Tuple[int, int], base_ns: int) -> float:
 
 def table(rec: Recording, op: Optional[int] = None) -> List[str]:
     """-v's lines: each span name's self seconds (summed over threads),
-    count and MB, then the syncs."""
+    count and MB, and each count's, then the syncs."""
     lines = [f"{'span':18s} {'self s':>9s} {'count':>8s} {'MB':>10s}"]
     for name, t in sorted(rec.by_name(op).items()):
         lines.append(f"{name:18s} {t.self_seconds:9.3f} {t.count:8d} "

@@ -13,7 +13,8 @@
 - The sync count equals the tensor-to-host conversions seen by patching
   torch.Tensor during the round trip (no exclusion: the plain versions of
   the kernels convert nothing on these paths).
-- Nested spans on two threads, `under=`, folded totals, the sessions.
+- Nested spans on two threads, `under=`, folded totals, the sessions;
+  counts, with no duration.
 - A span opened inside a torch.profiler record_function range lands
   inside it on the trace's clock (the anchor and baseTimeNanoseconds).
 - CLI -v prints the table; last_stage_times reads the recorder.
@@ -336,6 +337,26 @@ def test_folded_sessions_keep_no_spans():
     trace.start()
     assert trace.totals() == {}
     trace.stop()
+
+
+@pytest.mark.parametrize("keep", [True, False])
+def test_count_has_no_duration_and_joins_the_table(keep):
+    """A count adds to its name's count under the call of the span open on
+    its thread, makes no span and no time, and shows in table()."""
+    trace.count("native.fallback")                 # off: nothing
+    trace.start(keep=keep)
+    with trace.op("decompress") as root:
+        with trace.span("codec.serialize"):
+            trace.count("native.fallback")
+        trace.count("native.fallback", 2)
+    trace.count("native.fallback")                 # outside any call
+    rec = trace.stop()
+    assert rec.by_name(root.op)["native.fallback"] == (0.0, 0.0, 3, 0)
+    assert rec.by_name()["native.fallback"].count == 4
+    assert all(s.name != "native.fallback" for s in rec.spans)
+    assert rec.by_name()["codec.serialize"].count == 1
+    row = [ln for ln in trace.table(rec) if ln.startswith("native.fallback")]
+    assert row and row[0].split()[1:3] == ["0.000", "4"]
 
 
 def test_span_lands_inside_its_profiler_range():
