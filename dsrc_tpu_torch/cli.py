@@ -21,7 +21,8 @@ Options (compression):
   -s     FASTQ side on stdin/stdout
   -v     verbose: per-stream sizes (c), then the recorder's spans
          (dsrc_tpu_torch/utils/trace.py): each span's self seconds
-         summed over threads, count and MB; the device-to-host reads;
+         summed over threads, count and MB; each count (dna.<scheme>:
+         the bases each DNA scheme coded); the device-to-host reads;
          whether the native host library served the host, and
          the file it was loaded from
 

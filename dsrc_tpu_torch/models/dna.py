@@ -29,6 +29,7 @@ from ..ops.rans_kernels import rans_encode_from_freqs
 from ..ops.streams import (deserialize_rans, serialize_rans, stream_tensors,
                            to_numpy)
 from ..ops.transform import DNA_NSYM, INVALID_SYM, histogram
+from ..utils import trace
 from ..utils.bitio import BitReader, BitWriter
 from ..utils.npbits import np_pack_fixed, np_unpack_fixed
 
@@ -40,6 +41,10 @@ SCHEME_A19 = 4
 SCHEME_RAW = 5
 SCHEME_CTX4P = 6   # base-PAIR symbols (A=16), ctx = previous pairs
 SCHEME_CTX8P = 7   # dense<=8 base-pair symbols (A=64)
+SCHEME_NAMES = {SCHEME_EMPTY: "EMPTY", SCHEME_PACK2: "PACK2",
+                SCHEME_CTX4: "CTX4", SCHEME_CTX8: "CTX8", SCHEME_A19: "A19",
+                SCHEME_RAW: "RAW", SCHEME_CTX4P: "CTX4P",
+                SCHEME_CTX8P: "CTX8P"}
 
 MAX_ORDER8 = 7
 
@@ -141,7 +146,15 @@ def _dense(syms: torch.Tensor, nz: np.ndarray) -> torch.Tensor:
 def encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
                hist: np.ndarray) -> str:
     """syms: [cap] dense DNA indices (zero past n).  Returns the name of
-    the scheme written."""
+    the scheme written, and counts its n bases under "dna.<scheme>" in the
+    recorder (utils/trace.py)."""
+    scheme = _encode_dna(w, syms, n, order, hist)
+    trace.count("dna." + scheme, n)
+    return scheme
+
+
+def _encode_dna(w: BitWriter, syms: torch.Tensor, n: int, order: int,
+                hist: np.ndarray) -> str:
     cap = syms.shape[0]
     if n == 0:
         w.put_byte(SCHEME_EMPTY)
@@ -224,8 +237,16 @@ def _fit(dec: torch.Tensor, cap: int, n: int) -> torch.Tensor:
 
 def decode_dna(r: BitReader, cap: int, order: int,
                device) -> Tuple[torch.Tensor, int]:
-    """Returns ([cap] uint8 dense DNA indices zero-padded, n)."""
+    """Returns ([cap] uint8 dense DNA indices zero-padded, n), and counts
+    the n bases under "dna.<scheme>" in the recorder (utils/trace.py)."""
     scheme = r.get_byte()
+    dna, n = _decode_dna(r, scheme, cap, order, device)
+    trace.count("dna." + SCHEME_NAMES[scheme], n)
+    return dna, n
+
+
+def _decode_dna(r: BitReader, scheme: int, cap: int, order: int,
+                device) -> Tuple[torch.Tensor, int]:
     if scheme == SCHEME_EMPTY:
         return torch.zeros(cap, dtype=torch.uint8, device=device), 0
     if scheme == SCHEME_RAW:

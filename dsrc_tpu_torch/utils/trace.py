@@ -45,6 +45,9 @@ name's count in the totals, under the call of the span open on its thread,
 and shows in table() with no time.  The counts:
 
   native.fallback  a call of utils/native.py served by its numpy fallback
+  dna.<scheme>     the bases of a block's DNA stream that scheme <scheme>
+                   (models/dna.py: EMPTY, PACK2, CTX4, CTX8, CTX4P, CTX8P,
+                   A19, RAW) coded or decoded
 
 Clock: start() takes one (perf_counter_ns, time_ns) pair, `anchor`.  A
 Chrome trace exported by torch.profiler (Kineto) stamps its events in

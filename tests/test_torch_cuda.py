@@ -494,6 +494,52 @@ def test_m1_block_with_iupac_codes_launches_k4(cuda):
     assert cpu_arch.getvalue() == arch.getvalue()
 
 
+def test_m1_iupac_at_64mb_blocks_card_equals_cpu(cuda):
+    """The -m1 preset (-d2 -q2, 64 MB blocks, two workers) on three blocks
+    of reads with IUPAC codes in their DNA: every block's DNA takes scheme
+    A19, dna.A19 counts every base of the DNA stream on compress and on
+    decompress and no other scheme counts any, K4 launches once a block,
+    the round trip is byte-exact and the archive is the port's CPU
+    archive."""
+    import chip_smoke as CS
+    from dsrc_tpu_torch.api import DsrcModule
+    from dsrc_tpu_torch.config import InputParameters
+    from dsrc_tpu_torch.ops import rans_kernels as RK
+    from dsrc_tpu_torch.utils import trace
+    data = CS.with_iupac(CS.realistic_of_size(3 * (64 << 20) - 4096, 87),
+                         87)
+    lines = data.split(b"\n")
+    seq = np.frombuffer(b"".join(lines[1::4]), np.uint8)
+    qual = np.frombuffer(b"".join(lines[3::4]), np.uint8) - 33
+    # the DNA stream's bases: less the codes folded into the quality
+    bases = len(seq) - int(np.count_nonzero(
+        ~np.isin(seq, list(b"ACGT")) & (qual < 7)))
+    params = InputParameters.preset(1)
+
+    def recorded(fn):
+        """fn's result, and the dna.* counts of the recorder around it."""
+        trace.start(keep=False)
+        try:
+            res = fn()
+        finally:
+            rec = trace.stop()
+        return res, {k: t.count for k, t in rec.by_name().items()
+                     if k.startswith("dna.")}
+    RK.reset_launch_counts()
+    arch, out = io.BytesIO(), io.BytesIO()
+    info, enc = recorded(lambda: DsrcModule(params, device=cuda).compress(
+        io.BytesIO(data), arch))
+    _, dec = recorded(lambda: DsrcModule(params, device=cuda).decompress(
+        io.BytesIO(arch.getvalue()), out))
+    assert out.getvalue() == data
+    assert [d for d, _ in info.schemes] == ["A19"] * 3
+    assert enc == dec == {"dna.A19": bases}
+    assert RK.launch_counts()["a19_decode"] == 3
+    cpu_arch = io.BytesIO()
+    DsrcModule(params, device="cpu").compress(io.BytesIO(data), cpu_arch)
+    assert cpu_arch.getvalue() == arch.getvalue()
+
+
 def test_one_m1_block_round_trip(cuda):
     """One -m1 (-d2 -q2) block on the card: byte-exact, through K1 and
     K3, and the same archive as the port writes on the CPU."""
