@@ -13,6 +13,11 @@ device.  GENERIC blocks and semi title mode 0 code their titles with
 encode_tags / decode_tags; semi title mode 2 uses analyze_value_fields /
 render_value_titles: every field constant or numeric, coded on the device
 as an [R, F] value matrix.
+
+The passes over title bytes (tokenize, the field classification, and the
+rendering of decoded fields back to titles) run in the native host library
+(utils/native.py) when it is built; their numpy versions here give the
+same bytes, serve without it, and count `native.fallback` when they do.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from ..config import DsrcException
 from ..ops import ctx as C
 from ..ops.streams import (deserialize_rans, pack_ints, serialize_rans,
                            stream_tensors, to_numpy, unpack_ints)
+from ..utils import native, trace
 from ..utils.bitio import BitReader, BitWriter
 
 SEPARATORS = b" ._,=:/-#"
@@ -74,6 +80,18 @@ def tokenize(stream: np.ndarray, lengths: np.ndarray
     """Split titles at separators; records deviating from the modal
     (field count, separator sequence) become exceptions.  None when fewer
     than half the records share one structure (mixed block -> raw)."""
+    stream = np.ascontiguousarray(stream, np.uint8)
+    lengths = np.ascontiguousarray(lengths, np.int64)
+    if native.available() and len(lengths) and lengths.min() >= 0 and \
+            len(stream) >= int(lengths.sum()):
+        tt = native.tag_tokenize(stream, lengths, MAX_FIELDS)
+        return None if tt is None else TokenTable(*tt)
+    trace.count(native.FALLBACK)
+    return _tokenize_numpy(stream, lengths)
+
+
+def _tokenize_numpy(stream: np.ndarray, lengths: np.ndarray
+                    ) -> Optional[TokenTable]:
     R = len(lengths)
     n = int(lengths.sum())
     stream = stream[:n]
@@ -200,6 +218,34 @@ def _is_const(stream, start, tlen) -> bool:
         return True
     mat = _gather_matrix(stream, start, L0)
     return bool((mat == mat[0]).all())
+
+
+KIND_CONST = 0     # _classify's field kinds
+KIND_NUM = 1
+KIND_TEXT = 2
+
+
+def _classify(stream: np.ndarray, tt: TokenTable, max_digits: int):
+    """Each field of tt as KIND_CONST (_is_const), KIND_NUM (_numeric_values
+    and at most max_digits <= 18 digits) or KIND_TEXT: (kinds [k], pads [k],
+    vals), vals[f] a numeric field's int64 values and pads[f] its pad
+    width."""
+    if native.available():
+        return native.tag_classify(stream, tt.tok_start, tt.tok_len,
+                                   max_digits, MAX_CONST_LEN)
+    trace.count(native.FALLBACK)
+    kinds = np.full(tt.k, KIND_TEXT, np.int32)
+    pads = np.zeros(tt.k, np.int64)
+    vals: List[Optional[np.ndarray]] = [None] * tt.k
+    for f in range(tt.k):
+        start, tlen = tt.tok_start[:, f], tt.tok_len[:, f]
+        if _is_const(stream, start, tlen):
+            kinds[f] = KIND_CONST
+            continue
+        v, pad = _numeric_values(stream, start, tlen)
+        if v is not None and int(tlen.max()) <= max_digits:
+            kinds[f], pads[f], vals[f] = KIND_NUM, pad, v
+    return kinds, pads, vals
 
 
 def _extract_field(stream, start, tlen) -> np.ndarray:
@@ -438,29 +484,26 @@ def analyze_value_fields(stream: np.ndarray, lengths: np.ndarray):
     (k, seps bytes, fields) with fields: (TOKF_CONST, bytes) |
     (TOKF_NUM, None) | (TOKF_NUM_PAD, width) — everything needed to render
     titles exactly from the values."""
-    stream = np.asarray(stream, np.uint8)
-    lengths = np.asarray(lengths, np.int64)
+    stream = np.ascontiguousarray(stream, np.uint8)
+    lengths = np.ascontiguousarray(lengths, np.int64)
     tt = tokenize(stream, lengths)
     if tt is None or len(tt.exc_idx):
         return None
+    kinds, pads, vals = _classify(stream, tt, 9)
+    if (kinds == KIND_TEXT).any():
+        return None              # text or >9 digits: host tag coder instead
     fields = []
     vcols = []
     for f in range(tt.k):
-        start, tlen = tt.tok_start[:, f], tt.tok_len[:, f]
-        if _is_const(stream, start, tlen):
-            w0 = int(tlen[0])
-            cb = (bytes(_gather_matrix(stream, start, w0)[0])
-                  if w0 else b"")
-            fields.append((TOKF_CONST, cb))
+        if kinds[f] == KIND_CONST:
+            s0, w0 = int(tt.tok_start[0, f]), int(tt.tok_len[0, f])
+            fields.append((TOKF_CONST, stream[s0:s0 + w0].tobytes()))
             continue
-        vals, pad = _numeric_values(stream, start, tlen)
-        if vals is None or int(tlen.max()) > 9:
-            return None          # text or >9 digits: host tag coder instead
-        if pad:
-            fields.append((TOKF_NUM_PAD, pad))
+        if pads[f]:
+            fields.append((TOKF_NUM_PAD, int(pads[f])))
         else:
             fields.append((TOKF_NUM, None))
-        vcols.append(vals.astype(np.int32))
+        vcols.append(vals[f].astype(np.int32))
     vmat = (np.stack(vcols, axis=1) if vcols
             else np.zeros((len(lengths), 0), np.int32))
     return vmat, (tt.k, bytes(tt.seps), fields)
@@ -469,11 +512,44 @@ def analyze_value_fields(stream: np.ndarray, lengths: np.ndarray):
 _POW10 = 10 ** np.arange(10, dtype=np.int64)
 
 
+def _render_values_native(vmat: np.ndarray, meta, num_rec: int):
+    """render_value_titles from the library in one pass, or None where it
+    does not serve: without the library, or for a meta or value matrix
+    that does not fit (numpy renders or rejects those as it always has)."""
+    k, seps, fields = meta
+    nnum = sum(sch != TOKF_CONST for sch, _ in fields)
+    if not native.available() or len(fields) != k or len(seps) < k - 1 \
+            or vmat.ndim != 2 or not 0 <= num_rec <= len(vmat) \
+            or vmat.shape[1] < nnum or any(
+                sch == TOKF_NUM_PAD and not 0 <= int(arg) <= 10
+                for sch, arg in fields):
+        return None
+    kind = np.array([0 if sch == TOKF_CONST else
+                     2 if sch == TOKF_NUM_PAD else 1
+                     for sch, _ in fields], np.int32)
+    arg = np.array([len(a) if sch == TOKF_CONST else
+                    int(a) if sch == TOKF_NUM_PAD else 0
+                    for sch, a in fields], np.int64)
+    data = [np.frombuffer(a, np.uint8) if sch == TOKF_CONST else None
+            for sch, a in fields]
+    width = int(np.where(kind == 1, 10, arg).sum()) + max(k - 1, 0)
+    return native.tag_render_values(
+        num_rec, np.frombuffer(seps, np.uint8), kind, arg, data,
+        np.ascontiguousarray(vmat[:num_rec]), num_rec * width)
+
+
 def render_value_titles(vmat: np.ndarray, meta, num_rec: int):
     """Inverse of analyze_value_fields: (concatenated titles u8,
-    lengths i64).  Vectorized digit extraction; exact by construction."""
+    lengths i64).  A field of TOKF_NUM takes as many digits as its value
+    has (1 to 10), one of TOKF_NUM_PAD its width; digit i of w is
+    floor(v / 10^(w-1-i)) mod 10, exact by construction."""
+    vmat = np.asarray(vmat, np.int64)
+    got = _render_values_native(vmat, meta, num_rec)
+    if got is not None:
+        return got
+    trace.count(native.FALLBACK)
     k, seps, fields = meta
-    vmat = np.asarray(vmat, np.int64)[:num_rec]
+    vmat = vmat[:num_rec]
     col = 0
     widths = []                    # per piece: [R] char widths
     pieces = []                    # (kind, arg): 'c' bytes | 'n' (vals, w)
@@ -527,8 +603,8 @@ def encode_tags(w: BitWriter, stream: np.ndarray, lengths: np.ndarray,
     if R == 0:
         w.put_byte(TS_EMPTY)
         return
-    stream = np.asarray(stream, np.uint8)
-    lengths = np.asarray(lengths, np.int64)
+    stream = np.ascontiguousarray(stream, np.uint8)
+    lengths = np.ascontiguousarray(lengths, np.int64)
     if preserve_mask != 0xFFFFFFFFFFFFFFFF:
         stream, lengths = filter_fields(stream, lengths, preserve_mask)
     tt = tokenize(stream, lengths)
@@ -545,16 +621,17 @@ def encode_tags(w: BitWriter, stream: np.ndarray, lengths: np.ndarray,
     text_parts: List[np.ndarray] = []
     text_lens: dict = {}
     text_field_ids: List[int] = []
+    kinds, pads, vals = _classify(stream, tt, 18)
     for k in range(tt.k):
         start, tlen = tt.tok_start[:, k], tt.tok_len[:, k]
-        if _is_const(stream, start, tlen):
+        if kinds[k] == KIND_CONST:
             w.put_byte(FS_CONST)
             w.put_varint(int(tlen[0]))
             w.put_bytes(stream[start[0]: start[0] + tlen[0]].tobytes())
             continue
-        vals, pad_width = _numeric_values(stream, start, tlen)
-        if vals is not None:
-            scheme, payload = _choose_numeric_scheme(vals)
+        if kinds[k] == KIND_NUM:
+            pad_width = int(pads[k])
+            scheme, payload = _choose_numeric_scheme(vals[k])
             w.put_byte(scheme | (FS_PAD_FLAG if pad_width else 0))
             if pad_width:
                 w.put_varint(pad_width)
@@ -636,9 +713,10 @@ def decode_tags(r: BitReader, num_rec: int, cap: int, device
         else np.zeros(0, np.uint8)
     exc_idx = unpack_ints(r).astype(np.int64)
     R = num_rec - len(exc_idx)
-    field_bytes: List[Optional[np.ndarray]] = []   # None => from text stream
-    field_lens: List[np.ndarray] = []
-    field_delta: List[bool] = []
+    # per field: ("c", token bytes) | ("n", int64 values, pad width) |
+    # ("t", lengths, vertical delta); a text field's bytes come after
+    fields: List[tuple] = []
+    text_lens: dict = {}
     text_fields: List[int] = []
     for fk in range(k):
         fs = r.get_byte()
@@ -648,41 +726,29 @@ def decode_tags(r: BitReader, num_rec: int, cap: int, device
             pad_width = r.get_varint()
         if fs == FS_CONST:
             ln = r.get_varint()
-            tok = np.frombuffer(r.get_bytes(ln), np.uint8)
-            field_bytes.append(np.tile(tok, R))
-            field_lens.append(np.full(R, ln, np.int64))
-            field_delta.append(False)
-        elif fs == FS_NUM_DELTA_CONST:
+            fields.append(("c", np.frombuffer(r.get_bytes(ln), np.uint8)))
+            continue
+        if fs in (FS_TEXT, FS_TEXT_DELTA):
+            tlens = unpack_ints(r)
+            fields.append(("t", tlens, fs == FS_TEXT_DELTA))
+            text_lens[fk] = tlens
+            text_fields.append(fk)
+            continue
+        if fs == FS_NUM_DELTA_CONST:
             v0 = r.get_svarint()
             d = r.get_svarint()
             vals = v0 + d * np.arange(R, dtype=np.int64)
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
         elif fs == FS_NUM_VALUE:
             vals = unpack_ints(r)
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
         elif fs == FS_NUM_DELTA:
             v0 = r.get_svarint()
             diffs = unpack_ints(r)
             vals = np.concatenate([[v0], v0 + np.cumsum(diffs)]).astype(
                 np.int64)
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
         elif fs == FS_NUM_RLE:
             rv = unpack_ints(r)
             rl = unpack_ints(r)
             vals = np.repeat(rv, rl)
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
         elif fs == FS_NUM_DELTA_RLE:
             v0 = r.get_svarint()
             dv = unpack_ints(r)
@@ -690,38 +756,107 @@ def decode_tags(r: BitReader, num_rec: int, cap: int, device
             diffs = np.repeat(dv, dl)
             vals = np.concatenate([[v0], v0 + np.cumsum(diffs)]).astype(
                 np.int64)
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
         elif fs == FS_NUM_DICT:
             uniq = unpack_ints(r)
             idx = unpack_ints(r)
             vals = uniq[idx]
-            b, lens = _num_to_bytes(vals, pad_width)
-            field_bytes.append(b)
-            field_lens.append(lens)
-            field_delta.append(False)
-        elif fs in (FS_TEXT, FS_TEXT_DELTA):
-            tlens = unpack_ints(r)
-            field_bytes.append(None)
-            field_lens.append(tlens)
-            field_delta.append(fs == FS_TEXT_DELTA)
-            text_fields.append(fk)
         else:
             raise DsrcException(f"bad tag field scheme {fs}")
-    ctx = _text_ctx(field_lens, text_fields)
+        fields.append(("n", vals, pad_width))
+    ctx = _text_ctx(text_lens, text_fields)
     text = _decode_text(r, ctx, cap, device)
     # split the shared text stream back into per-field chunks
+    text_bytes = {}
     off = 0
     for fk in text_fields:
-        total = int(field_lens[fk].sum())
+        lens = text_lens[fk]
+        total = int(lens.sum())
         chunk = text[off: off + total]
-        if field_delta[fk]:
+        if fields[fk][2]:
             chunk = _text_delta_bwd(chunk.astype(np.int64),
-                                    np.asarray(field_lens[fk], np.int64))
-        field_bytes[fk] = chunk
+                                    np.asarray(lens, np.int64))
+        text_bytes[fk] = chunk
         off += total
+    exc_lens = np.zeros(0, np.int64)
+    exc_bytes = np.zeros(0, np.uint8)
+    if len(exc_idx):
+        exc_lens = unpack_ints(r).astype(np.int64)
+        exc_bytes = _decode_bytes(r, cap, device)
+    got = _render_tags_native(num_rec, R, seps, fields, text_bytes,
+                              exc_idx, exc_lens, exc_bytes)
+    if got is not None:
+        return got
+    trace.count(native.FALLBACK)
+    return _render_tags_numpy(num_rec, R, seps, fields, text_bytes,
+                              exc_idx, exc_lens, exc_bytes)
+
+
+_MAX_PAD = 64      # a wider pad width (never written) renders with numpy
+
+
+def _render_tags_native(num_rec, R, seps, fields, text_bytes, exc_idx,
+                        exc_lens, exc_bytes):
+    """decode_tags' titles from the library in one pass, or None where it
+    does not serve: without the library, or for fields that do not fit
+    their records (a malformed archive), which numpy renders (or rejects)
+    as it always has."""
+    k = len(fields)
+    if not native.available() or k < 1 or R < 0 or len(seps) < k - 1 or \
+            len(exc_lens) != len(exc_idx) or (exc_lens < 0).any() or \
+            len(exc_bytes) != int(exc_lens.sum()):
+        return None
+    kind = np.zeros(k, np.int32)
+    arg = np.zeros(k, np.int64)
+    data: List[Optional[np.ndarray]] = [None] * k
+    ivec: List[Optional[np.ndarray]] = [None] * k
+    bound = R * (k - 1) + len(exc_bytes)
+    for fk, fld in enumerate(fields):
+        if fld[0] == "c":
+            data[fk] = np.ascontiguousarray(fld[1], np.uint8)
+            arg[fk] = len(fld[1])
+            bound += R * len(fld[1])
+        elif fld[0] == "n":
+            vals, pad = fld[1], fld[2]
+            if len(vals) != R or pad > _MAX_PAD:
+                return None
+            kind[fk], arg[fk] = 1, pad
+            ivec[fk] = np.ascontiguousarray(vals, np.int64)
+            bound += R * max(pad, 20)
+        else:
+            lens, chunk = np.asarray(fld[1], np.int64), text_bytes[fk]
+            if len(lens) != R or (lens < 0).any() or \
+                    len(chunk) != int(lens.sum()):
+                return None
+            kind[fk] = 2
+            data[fk] = np.ascontiguousarray(chunk, np.uint8)
+            ivec[fk] = np.ascontiguousarray(lens)
+            bound += len(chunk)
+    return native.tag_render(num_rec, np.ascontiguousarray(seps, np.uint8),
+                             kind, arg, data, ivec,
+                             np.ascontiguousarray(exc_idx, np.int64),
+                             np.ascontiguousarray(exc_lens, np.int64),
+                             np.ascontiguousarray(exc_bytes, np.uint8),
+                             bound)
+
+
+def _render_tags_numpy(num_rec, R, seps, fields, text_bytes, exc_idx,
+                       exc_lens, exc_bytes):
+    """decode_tags' titles by numpy: each field's bytes, scattered field by
+    field, then the exception titles spliced in."""
+    k = len(fields)
+    field_bytes: List[np.ndarray] = []
+    field_lens: List[np.ndarray] = []
+    for fk, fld in enumerate(fields):
+        if fld[0] == "c":
+            field_bytes.append(np.tile(fld[1], R))
+            field_lens.append(np.full(R, len(fld[1]), np.int64))
+        elif fld[0] == "n":
+            b, lens = _num_to_bytes(fld[1], fld[2])
+            field_bytes.append(b)
+            field_lens.append(lens)
+        else:
+            field_bytes.append(text_bytes[fk])
+            field_lens.append(fld[1])
     # assemble matched titles: token_0 sep_0 ... sep_{K-2} token_{K-1}
     lens_mat = np.stack(field_lens, axis=1) if k else np.zeros((R, 0))
     title_lens = lens_mat.sum(1) + (k - 1)
@@ -745,8 +880,6 @@ def decode_tags(r: BitReader, num_rec: int, cap: int, device
     if not len(exc_idx):
         return out, title_lens.astype(np.int64)
     # splice exception titles back at their record positions
-    exc_lens = unpack_ints(r).astype(np.int64)
-    exc_bytes = _decode_bytes(r, cap, device)
     all_lens = np.zeros(num_rec, np.int64)
     is_exc = np.zeros(num_rec, bool)
     is_exc[exc_idx] = True

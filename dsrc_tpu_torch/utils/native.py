@@ -99,6 +99,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dsrc_layout_records.argtypes = [
         i64, u8p, i64p, u8p, u8p, i64p, u8p,
         ctypes.c_int32, ctypes.c_int32, u8p]
+    i32 = ctypes.c_int32
+    vpp = ctypes.c_void_p
+    lib.dsrc_tag_structure.restype = i64
+    lib.dsrc_tag_structure.argtypes = [u8p, i64p, i64, i64, u8p, u8p]
+    lib.dsrc_tag_tokens.restype = i64
+    lib.dsrc_tag_tokens.argtypes = [u8p, i64p, i64, i64, u8p, i64p, i64p]
+    lib.dsrc_tag_classify.restype = i64
+    lib.dsrc_tag_classify.argtypes = [u8p, i64p, i64p, i64, i64, i64, i64,
+                                      i32p, i64p, i64p]
+    lib.dsrc_tag_render.restype = i64
+    lib.dsrc_tag_render.argtypes = [i64, i64, u8p, i32p, i64p, vpp, vpp,
+                                    i64p, i64, i64p, u8p, i64p, u8p]
+    lib.dsrc_tag_render_values.restype = i64
+    lib.dsrc_tag_render_values.argtypes = [i64, i64, u8p, i32p, i64p, vpp,
+                                           i64p, i64, i64p, u8p]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -333,3 +348,107 @@ def _scatter_var(out: np.ndarray, content: np.ndarray, lens: np.ndarray,
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
     within = np.arange(total, dtype=np.int64) - offs[reps]
     out[dst[reps] + within] = content[:total]
+
+
+# --------------------------------------------------------------------------
+# The tag coder's title passes (models/tag.py holds their numpy fallbacks,
+# and calls these only when available() is true)
+# --------------------------------------------------------------------------
+
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _ptrs(arrays) -> ctypes.Array:
+    """A C array of the arrays' data pointers (None: a null pointer)."""
+    return (ctypes.c_void_p * max(len(arrays), 1))(
+        *[a.ctypes.data if a is not None else None for a in arrays])
+
+
+def tag_tokenize(stream: np.ndarray, lengths: np.ndarray, max_fields: int):
+    """The modal token structure of the titles (stream u8, lengths i64 [R],
+    R >= 1, every length >= 0, len(stream) >= their sum): (k, seps u8
+    [k-1], tok_start [Rm, k], tok_len [Rm, k], match_idx, exc_idx), the
+    fields of models/tag.py's TokenTable as its numpy tokenize gives them,
+    or None for no dominant structure."""
+    lib = _load()
+    stream = np.ascontiguousarray(stream, np.uint8)
+    lengths = np.ascontiguousarray(lengths, np.int64)
+    r = len(lengths)
+    seps = np.zeros(max_fields, np.uint8)
+    match = np.empty(r, np.uint8)
+    k = lib.dsrc_tag_structure(_u8(stream), _i64(lengths), r, max_fields,
+                               _u8(seps), _u8(match))
+    if k == -2:
+        raise MemoryError("tag structure")
+    if k < 0:
+        return None
+    match = match.view(bool)
+    match_idx = np.flatnonzero(match).astype(np.int64)
+    exc_idx = np.flatnonzero(~match).astype(np.int64)
+    tok_start = np.empty((len(match_idx), k), np.int64)
+    tok_len = np.empty((len(match_idx), k), np.int64)
+    if lib.dsrc_tag_tokens(_u8(stream), _i64(lengths), r, k,
+                           _u8(match.view(np.uint8)), _i64(tok_start),
+                           _i64(tok_len)) < 0:
+        return None
+    return k, seps[:k - 1].copy(), tok_start, tok_len, match_idx, exc_idx
+
+
+def tag_classify(stream: np.ndarray, tok_start: np.ndarray,
+                 tok_len: np.ndarray, max_digits: int, max_const: int):
+    """Each field of a token table [Rm, k] (Rm >= 1) as constant (0),
+    numeric (1) or text (2), in one pass over its tokens: (kind i32 [k],
+    pad i64 [k], vals i64 [k, Rm], a numeric field's values in its row)."""
+    lib = _load()
+    stream = np.ascontiguousarray(stream, np.uint8)
+    tok_start = np.ascontiguousarray(tok_start, np.int64)
+    tok_len = np.ascontiguousarray(tok_len, np.int64)
+    rm, k = tok_start.shape
+    if rm < 1 or tok_len.shape != (rm, k):
+        raise ValueError("tag_classify: a token table of one record or more")
+    kind = np.empty(k, np.int32)
+    pad = np.empty(k, np.int64)
+    vals = np.empty((k, rm), np.int64)
+    if lib.dsrc_tag_classify(_u8(stream), _i64(tok_start), _i64(tok_len),
+                             rm, k, max_digits, max_const, _i32(kind),
+                             _i64(pad), _i64(vals)) < 0:
+        raise MemoryError("tag_classify")
+    return kind, pad, vals
+
+
+def tag_render(num_rec: int, seps: np.ndarray, kind: np.ndarray,
+               arg: np.ndarray, data, ivec, exc_idx: np.ndarray,
+               exc_lens: np.ndarray, exc_bytes: np.ndarray, bound: int):
+    """The titles of a token-coded section from its decoded fields (see
+    native/host_ops.cpp:dsrc_tag_render; data and ivec hold one array or
+    None a field, every array contiguous and of its C type), in at most
+    `bound` bytes: (titles u8, lengths i64 [num_rec]), or None when a
+    padded value is wider than its pad or exc_idx is out of order."""
+    lib = _load()
+    out = np.empty(max(bound, 1), np.uint8)
+    lens = np.empty(num_rec, np.int64)
+    n = lib.dsrc_tag_render(num_rec, len(kind), _u8(seps), _i32(kind),
+                            _i64(arg), _ptrs(data), _ptrs(ivec),
+                            _i64(exc_idx), len(exc_idx), _i64(exc_lens),
+                            _u8(exc_bytes), _i64(lens), _u8(out))
+    if n == -3:
+        raise MemoryError("tag_render")
+    if n < 0:
+        return None
+    return out[:n], lens
+
+
+def tag_render_values(num_rec: int, seps: np.ndarray, kind: np.ndarray,
+                      arg: np.ndarray, data, vmat: np.ndarray, bound: int):
+    """The titles of a SEMI title mode 2 block from its value matrix vmat
+    i64 [num_rec, ncols] (see native/host_ops.cpp:dsrc_tag_render_values),
+    in at most `bound` bytes: (titles u8, lengths i64 [num_rec])."""
+    lib = _load()
+    out = np.empty(max(bound, 1), np.uint8)
+    lens = np.empty(num_rec, np.int64)
+    n = lib.dsrc_tag_render_values(num_rec, len(kind), _u8(seps),
+                                   _i32(kind), _i64(arg), _ptrs(data),
+                                   _i64(vmat), vmat.shape[1], _i64(lens),
+                                   _u8(out))
+    return out[:n], lens

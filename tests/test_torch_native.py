@@ -10,8 +10,10 @@
   processes that start together build it once; without g++, or when the
   build fails, the fallbacks serve, each call counts native.fallback, and
   the bytes are the same.
-- Archives of slices of the three traffic mixes are the same bytes with
-  and without the library, and decompress to their input.
+- Archives of slices of the four traffic mixes are the same bytes with
+  and without the library, and decompress to their input; with the
+  library no call counts native.fallback (tests/test_torch_tag_native.py
+  holds the tag coder's passes one by one).
 """
 import importlib.util
 import io
@@ -294,7 +296,7 @@ def test_cli_verbose_names_the_loaded_library(tmp_path, capsys):
 
 
 MIXES = {"semi-rt-64m": "dsrc-m0", "generic-rt-192m": "dsrc-m1",
-         "umi-rt-64m": "dsrc-m0"}
+         "umi-rt-64m": "dsrc-m0", "iupac-rt-192m": "dsrc-m1-iupac"}
 
 
 @pytest.mark.parametrize("mix", sorted(MIXES))
@@ -318,6 +320,8 @@ def test_traffic_archives_same_with_and_without_library(mix):
         return arc.getvalue(), back.getvalue(), fb.count if fb else 0
 
     (arc_lib, back_lib, n_lib), (arc_fb, back_fb, n_fb) = both(round_trip)
-    assert n_lib == 0 and n_fb >= 3 * 2
+    # every block's titles pass the tag coder's passes too: tokenize and
+    # classify (mode 2 and GENERIC), and the rendering back
+    assert n_lib == 0 and n_fb >= 3 * 2 + 3 * 3
     assert arc_lib == arc_fb
     assert back_lib == data and back_fb == data
