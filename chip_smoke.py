@@ -7,8 +7,8 @@ Phases, in order, each printing one JSON line; any failure raises and the
 script exits non-zero without printing a result:
 
   1 card     the card's name and power limit (nvidia-smi), torch's name,
-             and whether native/libdsrc_host.so serves the host's stages
-             (it is not built here; else its numpy fallbacks do)
+             and whether the native host library (utils/native.py, built
+             by g++ at first use) builds and loads
   2 build    nvcc builds every kernel of dsrc_tpu_torch/csrc and
              k4_variants.py's least-step probe (in parallel); each
              kernel's registers, shared memory and spills (ptxas -v)
@@ -2527,8 +2527,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = card_info()
     from dsrc_tpu_torch.utils import native
-    # whether native/libdsrc_host.so (built by `make -C native`, not here)
-    # or its numpy fallbacks serve the host's stages in this run
+    # whether the native host library, which every host stage needs,
+    # builds and loads
     emit({"phase": "card", "nvidia_smi": smi, "torch_name": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "native_host_library": native.available()})

@@ -118,10 +118,7 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
         if params.verbose:
             for line in trace.table(rec):
                 print("  " + line, file=sys.stderr)
-            lib = native.path()
-            print("  native host library: " + (
-                f"loaded ({lib})" if lib else "numpy fallbacks"),
-                file=sys.stderr)
+            print(f"  native host library: {native.path()}", file=sys.stderr)
     except DsrcException as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -16,8 +16,9 @@ as an [R, F] value matrix.
 
 The passes over title bytes (tokenize, the field classification, and the
 rendering of decoded fields back to titles) run in the native host library
-(utils/native.py) when it is built; their numpy versions here give the
-same bytes, serve without it, and count `native.fallback` when they do.
+(utils/native.py), which the port requires.  The two renderers keep a numpy
+body for the sections the library declines, which only a malformed archive
+holds: there they render, or reject, as dsrc_tpu does.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from ..config import DsrcException
 from ..ops import ctx as C
 from ..ops.streams import (deserialize_rans, pack_ints, serialize_rans,
                            stream_tensors, to_numpy, unpack_ints)
-from ..utils import native, trace
+from ..utils import native
 from ..utils.bitio import BitReader, BitWriter
 
 SEPARATORS = b" ._,=:/-#"
@@ -80,69 +81,8 @@ def tokenize(stream: np.ndarray, lengths: np.ndarray
     """Split titles at separators; records deviating from the modal
     (field count, separator sequence) become exceptions.  None when fewer
     than half the records share one structure (mixed block -> raw)."""
-    stream = np.ascontiguousarray(stream, np.uint8)
-    lengths = np.ascontiguousarray(lengths, np.int64)
-    if native.available() and len(lengths) and lengths.min() >= 0 and \
-            len(stream) >= int(lengths.sum()):
-        tt = native.tag_tokenize(stream, lengths, MAX_FIELDS)
-        return None if tt is None else TokenTable(*tt)
-    trace.count(native.FALLBACK)
-    return _tokenize_numpy(stream, lengths)
-
-
-def _tokenize_numpy(stream: np.ndarray, lengths: np.ndarray
-                    ) -> Optional[TokenTable]:
-    R = len(lengths)
-    n = int(lengths.sum())
-    stream = stream[:n]
-    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
-    rec_of = np.repeat(np.arange(R, dtype=np.int64), lengths)
-    is_sep = _SEP_SET[stream]
-    seps_per_rec = np.zeros(R, np.int64)
-    np.add.at(seps_per_rec, rec_of[is_sep], 1)
-    kcounts = np.bincount(np.minimum(seps_per_rec, MAX_FIELDS))
-    k = int(kcounts.argmax()) + 1     # modal token count
-    if k > MAX_FIELDS:
-        return None
-    cand = seps_per_rec == k - 1
-    if k > 1:
-        sep_pos = np.flatnonzero(is_sep)                     # record-major
-        sep_rec = rec_of[sep_pos]
-        cpos = sep_pos[cand[sep_rec]]
-        crec = np.flatnonzero(cand)
-        sep_chars = stream[cpos].reshape(len(crec), k - 1)
-        # modal separator row among candidates
-        rows, counts = np.unique(sep_chars, axis=0, return_counts=True)
-        modal = rows[counts.argmax()]
-        row_ok = (sep_chars == modal).all(axis=1)
-        match = np.zeros(R, bool)
-        match[crec[row_ok]] = True
-        seps = modal.astype(np.uint8)
-    else:
-        match = cand.copy()
-        seps = np.zeros(0, np.uint8)
-    if match.sum() * 2 < R:
-        return None
-    match_idx = np.flatnonzero(match).astype(np.int64)
-    exc_idx = np.flatnonzero(~match).astype(np.int64)
-    Rm = len(match_idx)
-    if k > 1:
-        msel = match[sep_rec]
-        mpos = sep_pos[msel]
-        sep_local = (mpos - starts[rec_of[mpos]]).reshape(Rm, k - 1)
-        tok_start_l = np.zeros((Rm, k), np.int64)
-        tok_start_l[:, 1:] = sep_local + 1
-        tok_end_l = np.concatenate(
-            [sep_local, lengths[match_idx].reshape(-1, 1).astype(np.int64)],
-            axis=1)
-    else:
-        tok_start_l = np.zeros((Rm, 1), np.int64)
-        tok_end_l = lengths[match_idx].reshape(-1, 1).astype(np.int64)
-    tok_len = tok_end_l - tok_start_l
-    if (tok_len < 0).any():
-        return None
-    return TokenTable(k, seps, tok_start_l + starts[match_idx][:, None],
-                      tok_len, match_idx, exc_idx)
+    tt = native.tag_tokenize(stream, lengths, MAX_FIELDS)
+    return None if tt is None else TokenTable(*tt)
 
 
 def filter_fields(stream: np.ndarray, lengths: np.ndarray,
@@ -173,79 +113,19 @@ def filter_fields(stream: np.ndarray, lengths: np.ndarray,
 # Per-field analysis
 # --------------------------------------------------------------------------
 
-def _gather_matrix(stream, start, width):
-    """[R, width] byte matrix of tokens (clipped; caller masks by length)."""
-    idx = start[:, None] + np.arange(width, dtype=np.int64)[None, :]
-    return stream[np.minimum(idx, len(stream) - 1)]
-
-
-def _numeric_values(stream, start, tlen
-                    ) -> Tuple[Optional[np.ndarray], int]:
-    """(values, pad_width): int64 values if every token is decimal.
-    pad_width > 0 means zero-padded fixed width (render with zfill);
-    pad_width == 0 means canonical (no leading zeros).  (None, -1) if not
-    numeric."""
-    if len(tlen) == 0 or (tlen < 1).any() or (tlen > 18).any():
-        return None, -1
-    w = int(tlen.max())
-    mat = _gather_matrix(stream, start, w)
-    col = np.arange(w, dtype=np.int64)[None, :]
-    in_tok = col < tlen[:, None]
-    is_digit = (mat >= 48) & (mat <= 57)
-    if not (is_digit | ~in_tok).all():
-        return None, -1
-    has_pad = ((mat[:, 0] == 48) & (tlen > 1)).any()
-    pad_width = 0
-    if has_pad:
-        # zero-padded decimals are numeric only at one fixed width
-        if not (tlen == tlen[0]).all():
-            return None, -1
-        pad_width = int(tlen[0])
-    vals = np.zeros(len(tlen), np.int64)
-    for i in range(w):
-        d = (mat[:, i] - 48).astype(np.int64)
-        vals = np.where(in_tok[:, i], vals * 10 + d, vals)
-    return vals, pad_width
-
-
-def _is_const(stream, start, tlen) -> bool:
-    if len(tlen) == 0:
-        return False
-    L0 = int(tlen[0])
-    if L0 > MAX_CONST_LEN or not (tlen == L0).all():
-        return False
-    if L0 == 0:
-        return True
-    mat = _gather_matrix(stream, start, L0)
-    return bool((mat == mat[0]).all())
-
-
 KIND_CONST = 0     # _classify's field kinds
 KIND_NUM = 1
 KIND_TEXT = 2
 
 
 def _classify(stream: np.ndarray, tt: TokenTable, max_digits: int):
-    """Each field of tt as KIND_CONST (_is_const), KIND_NUM (_numeric_values
-    and at most max_digits <= 18 digits) or KIND_TEXT: (kinds [k], pads [k],
-    vals), vals[f] a numeric field's int64 values and pads[f] its pad
-    width."""
-    if native.available():
-        return native.tag_classify(stream, tt.tok_start, tt.tok_len,
-                                   max_digits, MAX_CONST_LEN)
-    trace.count(native.FALLBACK)
-    kinds = np.full(tt.k, KIND_TEXT, np.int32)
-    pads = np.zeros(tt.k, np.int64)
-    vals: List[Optional[np.ndarray]] = [None] * tt.k
-    for f in range(tt.k):
-        start, tlen = tt.tok_start[:, f], tt.tok_len[:, f]
-        if _is_const(stream, start, tlen):
-            kinds[f] = KIND_CONST
-            continue
-        v, pad = _numeric_values(stream, start, tlen)
-        if v is not None and int(tlen.max()) <= max_digits:
-            kinds[f], pads[f], vals[f] = KIND_NUM, pad, v
-    return kinds, pads, vals
+    """Each field of tt as KIND_CONST (one token of at most MAX_CONST_LEN
+    bytes in every record), KIND_NUM (decimal tokens of at most max_digits
+    <= 18 digits, all of one width when one is zero-padded) or KIND_TEXT:
+    (kinds [k], pads [k], vals), vals[f] a numeric field's int64 values and
+    pads[f] its pad width."""
+    return native.tag_classify(stream, tt.tok_start, tt.tok_len,
+                               max_digits, MAX_CONST_LEN)
 
 
 def _extract_field(stream, start, tlen) -> np.ndarray:
@@ -513,14 +393,14 @@ _POW10 = 10 ** np.arange(10, dtype=np.int64)
 
 
 def _render_values_native(vmat: np.ndarray, meta, num_rec: int):
-    """render_value_titles from the library in one pass, or None where it
-    does not serve: without the library, or for a meta or value matrix
-    that does not fit (numpy renders or rejects those as it always has)."""
+    """render_value_titles from the library in one pass, or None for a
+    meta or value matrix that does not fit, which only a malformed archive
+    holds (_render_values_numpy renders or rejects those as dsrc_tpu
+    does)."""
     k, seps, fields = meta
     nnum = sum(sch != TOKF_CONST for sch, _ in fields)
-    if not native.available() or len(fields) != k or len(seps) < k - 1 \
-            or vmat.ndim != 2 or not 0 <= num_rec <= len(vmat) \
-            or vmat.shape[1] < nnum or any(
+    if len(fields) != k or len(seps) < k - 1 or vmat.ndim != 2 \
+            or not 0 <= num_rec <= len(vmat) or vmat.shape[1] < nnum or any(
                 sch == TOKF_NUM_PAD and not 0 <= int(arg) <= 10
                 for sch, arg in fields):
         return None
@@ -547,7 +427,13 @@ def render_value_titles(vmat: np.ndarray, meta, num_rec: int):
     got = _render_values_native(vmat, meta, num_rec)
     if got is not None:
         return got
-    trace.count(native.FALLBACK)
+    return _render_values_numpy(vmat, meta, num_rec)
+
+
+def _render_values_numpy(vmat: np.ndarray, meta, num_rec: int):
+    """render_value_titles for what the library declines (a malformed
+    archive's meta or value matrix), by numpy as dsrc_tpu renders it, or
+    raising what dsrc_tpu raises."""
     k, seps, fields = meta
     vmat = vmat[:num_rec]
     col = 0
@@ -786,7 +672,6 @@ def decode_tags(r: BitReader, num_rec: int, cap: int, device
                               exc_idx, exc_lens, exc_bytes)
     if got is not None:
         return got
-    trace.count(native.FALLBACK)
     return _render_tags_numpy(num_rec, R, seps, fields, text_bytes,
                               exc_idx, exc_lens, exc_bytes)
 
@@ -796,12 +681,11 @@ _MAX_PAD = 64      # a wider pad width (never written) renders with numpy
 
 def _render_tags_native(num_rec, R, seps, fields, text_bytes, exc_idx,
                         exc_lens, exc_bytes):
-    """decode_tags' titles from the library in one pass, or None where it
-    does not serve: without the library, or for fields that do not fit
-    their records (a malformed archive), which numpy renders (or rejects)
-    as it always has."""
+    """decode_tags' titles from the library in one pass, or None for fields
+    that do not fit their records, which only a malformed archive holds
+    (_render_tags_numpy renders or rejects those as dsrc_tpu does)."""
     k = len(fields)
-    if not native.available() or k < 1 or R < 0 or len(seps) < k - 1 or \
+    if k < 1 or R < 0 or len(seps) < k - 1 or \
             len(exc_lens) != len(exc_idx) or (exc_lens < 0).any() or \
             len(exc_bytes) != int(exc_lens.sum()):
         return None
@@ -841,8 +725,10 @@ def _render_tags_native(num_rec, R, seps, fields, text_bytes, exc_idx,
 
 def _render_tags_numpy(num_rec, R, seps, fields, text_bytes, exc_idx,
                        exc_lens, exc_bytes):
-    """decode_tags' titles by numpy: each field's bytes, scattered field by
-    field, then the exception titles spliced in."""
+    """decode_tags' titles for what the library declines (a malformed
+    archive's section), by numpy as dsrc_tpu renders them, or raising what
+    dsrc_tpu raises: each field's bytes, scattered field by field, then the
+    exception titles spliced in."""
     k = len(fields)
     field_bytes: List[np.ndarray] = []
     field_lens: List[np.ndarray] = []

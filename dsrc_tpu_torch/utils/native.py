@@ -6,11 +6,11 @@ the package (a directory .gitignore lists), named by a hash of the source
 and the flags, so a changed source is never served by a stale library.
 A file lock makes one process of many build it, and the build writes a
 temporary name that os.replace renames, so no process loads a half-written
-library.  Every entry point has a numpy fallback that gives the same bytes;
-without g++, or when the build fails, the fallbacks serve, and each call
-they serve counts `native.fallback` on the recorder (utils/trace.py).
-The library has a plain C ABI, bound by ctypes: its build needs no Python
-or PyTorch headers.
+library.  The library is required, as the CUDA kernels are: a missing g++
+or a failed build raises DsrcException at first use, and every entry point
+runs in it (nvcc builds host code with the host compiler, so every machine
+that runs the kernels has g++).  The library has a plain C ABI, bound by
+ctypes: its build needs no Python or PyTorch headers.
 """
 from __future__ import annotations
 
@@ -25,19 +25,16 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from . import trace
+from ..config import DsrcException
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(_ROOT, "native", "host_ops.cpp")
 BUILD_DIR = os.path.join(_ROOT, "build", "dsrc_tpu_torch")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
-FALLBACK = "native.fallback"
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-_PATH: Optional[str] = None
-_TRIED = False
 
 
 def lib_path() -> str:
@@ -52,54 +49,50 @@ def _compiler() -> Optional[str]:
     return shutil.which("g++")
 
 
-def build() -> Optional[str]:
-    """The library's path, compiled first when it is missing; None when
-    there is no g++ or the build fails."""
-    try:
-        out = lib_path()
-        if os.path.exists(out):
-            return out
-        cxx = _compiler()
-        if cxx is None:
-            return None
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(out + ".lock", "wb") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not os.path.exists(out):
-                tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-                try:
-                    subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
-                                   check=True, capture_output=True)
-                    os.replace(tmp, out)
-                finally:
-                    if os.path.exists(tmp):
-                        os.remove(tmp)
-    except (OSError, subprocess.CalledProcessError):
-        return None
+def build() -> str:
+    """The library's path, compiled first when it is missing; raises
+    DsrcException when there is no g++ or the build fails."""
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    cxx = _compiler()
+    if cxx is None:
+        raise DsrcException("g++ not found: the native host library is "
+                            "built from native/host_ops.cpp at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(out + ".lock", "wb") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            try:
+                done = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT)
+                if done.returncode != 0:
+                    raise DsrcException(
+                        f"native host library build failed: {cxx} exit "
+                        f"{done.returncode}\n"
+                        + done.stdout.decode(errors="replace"))
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
     return out
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    u16p = ctypes.POINTER(ctypes.c_uint16)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i64 = ctypes.c_int64
     lib.dsrc_scan_records.restype = i64
     lib.dsrc_scan_records.argtypes = [u8p, i64, i64, i64p]
-    lib.dsrc_compact_payload.restype = i64
-    lib.dsrc_compact_payload.argtypes = [i32p, i64, i64, i32p, u16p]
-    lib.dsrc_compact_payload_right.restype = i64
-    lib.dsrc_compact_payload_right.argtypes = [i32p, i64, i64, i32p, u16p]
-    lib.dsrc_expand_payload.restype = None
-    lib.dsrc_expand_payload.argtypes = [u16p, i64, i64, i32p, i32p]
     lib.dsrc_stage_semi.restype = i64
     lib.dsrc_stage_semi.argtypes = [u8p, i64, i64, i64, u8p, u8p, u8p, i64p]
     lib.dsrc_layout_records.restype = i64
     lib.dsrc_layout_records.argtypes = [
         i64, u8p, i64p, u8p, u8p, i64p, u8p,
         ctypes.c_int32, ctypes.c_int32, u8p]
-    i32 = ctypes.c_int32
     vpp = ctypes.c_void_p
     lib.dsrc_tag_structure.restype = i64
     lib.dsrc_tag_structure.argtypes = [u8p, i64p, i64, i64, u8p, u8p]
@@ -116,34 +109,31 @@ def _bind(lib: ctypes.CDLL) -> None:
                                            i64p, i64, i64p, u8p]
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    """The loaded library, built at the first call of the process; None
-    (every later call too) when it could not be built or loaded."""
-    global _LIB, _PATH, _TRIED
-    if _TRIED:
-        return _LIB
-    with _LOCK:
-        if not _TRIED:
-            path = build()
-            try:
-                lib = ctypes.CDLL(path) if path else None
-                if lib is not None:
-                    _bind(lib)
-            except (OSError, AttributeError):
-                lib = None
-            _LIB, _PATH = lib, path if lib is not None else None
-            _TRIED = True
+def _load() -> ctypes.CDLL:
+    """The loaded library, built at the first call of the process."""
+    global _LIB
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(build())
+                _bind(lib)
+                _LIB = lib
     return _LIB
 
 
 def available() -> bool:
-    return _load() is not None
+    """Whether the library builds and loads (every entry point needs it)."""
+    try:
+        _load()
+    except (DsrcException, OSError):
+        return False
+    return True
 
 
-def path() -> Optional[str]:
-    """The loaded library's file (None: the numpy fallbacks serve)."""
+def path() -> str:
+    """The loaded library's file."""
     _load()
-    return _PATH
+    return lib_path()
 
 
 def _u8(a: np.ndarray):
@@ -153,15 +143,6 @@ def _u8(a: np.ndarray):
 def scan_records(buf: np.ndarray, lines_before: int) -> Tuple[int, int]:
     """(newline_count, cut_position_after_last_boundary_or_-1)."""
     lib = _load()
-    if lib is None:
-        trace.count(FALLBACK)
-        nl_pos = np.flatnonzero(buf == 10)
-        n = len(nl_pos)
-        if n == 0:
-            return 0, -1
-        k = (lines_before + np.arange(n) + 1) % 4 == 0
-        hits = np.flatnonzero(k)
-        return n, (int(nl_pos[hits[-1]]) + 1 if len(hits) else -1)
     buf = np.ascontiguousarray(buf, np.uint8)
     cut = ctypes.c_int64(-1)
     count = lib.dsrc_scan_records(_u8(buf), len(buf), lines_before,
@@ -169,190 +150,61 @@ def scan_records(buf: np.ndarray, lines_before: int) -> Tuple[int, int]:
     return int(count), int(cut.value)
 
 
-def compact_payload(payload: np.ndarray, nwords: np.ndarray,
-                    right_aligned: bool = False) -> np.ndarray:
-    """[L, W] i32 rows -> flat u16 word stream.
-
-    Left-aligned rows keep the first nwords[j] words; right-aligned rows
-    (the in-scan encoder layout) keep the last nwords[j]."""
-    lib = _load()
-    payload = np.ascontiguousarray(payload, np.int32)
-    nwords = np.ascontiguousarray(nwords, np.int32)
-    total = int(nwords.sum())
-    w_max = payload.shape[1]
-    if lib is None:
-        trace.count(FALLBACK)
-        cols = np.arange(w_max)[None, :]
-        if right_aligned:
-            mask = cols >= (w_max - nwords[:, None])
-        else:
-            mask = cols < nwords[:, None]
-        return payload[mask].astype(np.uint16)
-    out = np.empty(total, np.uint16)
-    fn = lib.dsrc_compact_payload_right if right_aligned \
-        else lib.dsrc_compact_payload
-    fn(payload.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-       payload.shape[0], w_max,
-       nwords.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
-    return out
-
-
-def expand_payload(words: np.ndarray, nwords: np.ndarray,
-                   w_max: int) -> np.ndarray:
-    """Flat u16 stream -> [L, w_max] i32 rows."""
-    lib = _load()
-    nwords = np.ascontiguousarray(nwords, np.int32)
-    l = len(nwords)
-    if lib is None:
-        trace.count(FALLBACK)
-        payload = np.zeros((l, w_max), np.int32)
-        mask = np.arange(w_max)[None, :] < nwords[:, None]
-        payload[mask] = words
-        return payload
-    words = np.ascontiguousarray(words, np.uint16)
-    payload = np.zeros((l, w_max), np.int32)
-    lib.dsrc_expand_payload(
-        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        l, w_max,
-        nwords.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        payload.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-    return payload
-
-
 def _i64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def stage_semi(buf: np.ndarray, read_len: int, rpad: int):
-    """One-pass semi-uniform block staging (native when built, numpy
-    otherwise): validate the fixed-read-length 4-line layout and return
-    (qual_mat [rpad, read_len] u8, seq_mat [rpad, read_len] u8,
-    title_stream u8, title_lens i64, num_rec), or None when the block is
-    not semi-layout.  Mirrors native/host_ops.cpp:dsrc_stage_semi."""
+    """One-pass semi-uniform block staging: validate the fixed-read-length
+    4-line layout and return (qual_mat [rpad, read_len] u8, seq_mat
+    [rpad, read_len] u8, title_stream u8, title_lens i64, num_rec), or None
+    when the block is not semi-layout (native/host_ops.cpp:
+    dsrc_stage_semi)."""
     lib = _load()
     b = np.ascontiguousarray(buf, np.uint8)
     n = len(b)
     if not (0 < read_len <= 8192) or n == 0 or b[-1] != 10:
         return None
-    if lib is not None:
-        qm = np.zeros((rpad, read_len), np.uint8)
-        sm = np.zeros((rpad, read_len), np.uint8)
-        tbuf = np.empty(n, np.uint8)
-        tlens = np.zeros(rpad, np.int64)
-        rec = lib.dsrc_stage_semi(_u8(b), n, read_len, rpad, _u8(qm),
-                                  _u8(sm), _u8(tbuf), _i64(tlens))
-        if rec < 0:
-            return None
-        total = int(tlens[:rec].sum())
-        return qm, sm, tbuf[:total], tlens[:rec], int(rec)
-    # numpy fallback: the vectorized multi-pass equivalent
-    trace.count(FALLBACK)
-    nl = np.flatnonzero(b == 10)
-    if len(nl) == 0 or len(nl) % 4 or len(nl) // 4 > rpad:
-        return None
-    num_rec = len(nl) // 4
-    starts = np.concatenate([[0], nl[:-1] + 1])
-    l0, l1 = starts[0::4], starts[1::4]
-    l2, l3 = starts[2::4], starts[3::4]
-    e0, e1, e2, e3 = nl[0::4], nl[1::4], nl[2::4], nl[3::4]
-    if not (((e1 - l1) == read_len).all()
-            and ((e3 - l3) == read_len).all()
-            and ((e2 - l2) == 1).all()
-            and (b[l0] == ord("@")).all()
-            and (b[l2] == ord("+")).all()):
-        return None
-    cols = np.arange(read_len)
-    qual = b[l3[:, None] + cols]
-    if qual.min() < 33 or qual.max() >= 33 + 64:
-        return None
-    seq = b[l1[:, None] + cols]
-    if not np.isin(seq, np.frombuffer(b"ACGTN", np.uint8)).all():
-        return None
     qm = np.zeros((rpad, read_len), np.uint8)
-    qm[:num_rec] = qual
     sm = np.zeros((rpad, read_len), np.uint8)
-    sm[:num_rec] = seq
-    tl = (e0 - l0 - 1).astype(np.int64)
-    total = int(tl.sum())
-    reps = np.repeat(np.arange(num_rec), tl)
-    offs = np.concatenate([[0], np.cumsum(tl)[:-1]]).astype(np.int64)
-    within = np.arange(total, dtype=np.int64) - offs[reps]
-    tstream = b[(l0 + 1)[reps] + within]
-    return qm, sm, tstream, tl, num_rec
+    tbuf = np.empty(n, np.uint8)
+    tlens = np.zeros(rpad, np.int64)
+    rec = lib.dsrc_stage_semi(_u8(b), n, read_len, rpad, _u8(qm), _u8(sm),
+                              _u8(tbuf), _i64(tlens))
+    if rec < 0:
+        return None
+    total = int(tlens[:rec].sum())
+    return qm, sm, tbuf[:total], tlens[:rec], int(rec)
 
 
 def layout_records(num_rec: int, titles: np.ndarray, title_lens: np.ndarray,
                    seq: np.ndarray, qual: np.ndarray, qual_lens: np.ndarray,
                    primers, color_space: bool, plus_rep: bool) -> np.ndarray:
-    """Rebuild FASTQ text from decoded streams (decode-side mirror of
-    stage_semi, for ALL block schemes).  Native single pass when built;
-    numpy vectorized scatters otherwise."""
+    """Rebuild FASTQ text from decoded streams in one pass (decode-side
+    mirror of stage_semi, for ALL block schemes)."""
     tl = np.ascontiguousarray(title_lens, np.int64)[:num_rec]
     ql = np.ascontiguousarray(qual_lens, np.int64)[:num_rec]
     sl = ql + (1 if color_space else 0)
     plus_extra = tl if plus_rep else np.zeros_like(tl)
     total = int((1 + tl + 1 + sl + 1 + 1 + plus_extra + 1 + ql + 1).sum())
     lib = _load()
-    if lib is not None:
-        titles = np.ascontiguousarray(titles, np.uint8)
-        seq = np.ascontiguousarray(seq, np.uint8)
-        qual = np.ascontiguousarray(qual, np.uint8)
-        prim = np.ascontiguousarray(
-            primers if primers is not None else np.zeros(num_rec, np.uint8),
-            np.uint8)
-        out = np.empty(total, np.uint8)
-        wrote = lib.dsrc_layout_records(
-            num_rec, _u8(titles), _i64(tl), _u8(seq), _u8(qual), _i64(ql),
-            _u8(prim), int(color_space), int(plus_rep), _u8(out))
-        assert wrote == total
-        return out
-    # numpy fallback: vectorized scatters
-    trace.count(FALLBACK)
-    rec_len = 1 + tl + 1 + sl + 1 + 1 + plus_extra + 1 + ql + 1
-    starts = np.concatenate([[0], np.cumsum(rec_len)[:-1]]).astype(np.int64)
-    out = np.zeros(total, np.uint8)
-    out[starts] = ord("@")
-    t_dst = starts + 1
-    _scatter_var(out, titles, tl, t_dst)
-    nl1 = t_dst + tl
-    out[nl1] = 10
-    s_dst = nl1 + 1
-    if color_space:
-        out[s_dst] = primers
-        _scatter_var(out, seq, ql, s_dst + 1)
-    else:
-        _scatter_var(out, seq, ql, s_dst)
-    nl2 = s_dst + sl
-    out[nl2] = 10
-    p_dst = nl2 + 1
-    out[p_dst] = ord("+")
-    if plus_rep:
-        _scatter_var(out, titles, tl, p_dst + 1)
-    nl3 = p_dst + 1 + plus_extra
-    out[nl3] = 10
-    q_dst = nl3 + 1
-    _scatter_var(out, qual, ql, q_dst)
-    out[q_dst + ql] = 10
+    titles = np.ascontiguousarray(titles, np.uint8)
+    seq = np.ascontiguousarray(seq, np.uint8)
+    qual = np.ascontiguousarray(qual, np.uint8)
+    prim = np.ascontiguousarray(
+        primers if primers is not None else np.zeros(num_rec, np.uint8),
+        np.uint8)
+    out = np.empty(total, np.uint8)
+    wrote = lib.dsrc_layout_records(
+        num_rec, _u8(titles), _i64(tl), _u8(seq), _u8(qual), _i64(ql),
+        _u8(prim), int(color_space), int(plus_rep), _u8(out))
+    assert wrote == total
     return out
 
 
-def _scatter_var(out: np.ndarray, content: np.ndarray, lens: np.ndarray,
-                 dst: np.ndarray) -> None:
-    """out[dst[r] + i] = content[off[r] + i] for i < lens[r] (vectorized)."""
-    total = int(lens.sum())
-    if total == 0:
-        return
-    content = np.ascontiguousarray(content, np.uint8)
-    reps = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-    within = np.arange(total, dtype=np.int64) - offs[reps]
-    out[dst[reps] + within] = content[:total]
-
-
 # --------------------------------------------------------------------------
-# The tag coder's title passes (models/tag.py holds their numpy fallbacks,
-# and calls these only when available() is true)
+# The tag coder's title passes (models/tag.py; its numpy renderers serve
+# only the malformed sections tag_render and tag_render_values decline)
 # --------------------------------------------------------------------------
 
 def _i32(a: np.ndarray):
@@ -367,14 +219,17 @@ def _ptrs(arrays) -> ctypes.Array:
 
 def tag_tokenize(stream: np.ndarray, lengths: np.ndarray, max_fields: int):
     """The modal token structure of the titles (stream u8, lengths i64 [R],
-    R >= 1, every length >= 0, len(stream) >= their sum): (k, seps u8
-    [k-1], tok_start [Rm, k], tok_len [Rm, k], match_idx, exc_idx), the
-    fields of models/tag.py's TokenTable as its numpy tokenize gives them,
-    or None for no dominant structure."""
+    R >= 1, every length >= 0, len(stream) >= their sum; ValueError
+    otherwise): (k, seps u8 [k-1], tok_start [Rm, k], tok_len [Rm, k],
+    match_idx, exc_idx), the fields of models/tag.py's TokenTable as
+    dsrc_tpu's tokenize gives them, or None for no dominant structure."""
     lib = _load()
     stream = np.ascontiguousarray(stream, np.uint8)
     lengths = np.ascontiguousarray(lengths, np.int64)
     r = len(lengths)
+    if r < 1 or lengths.min() < 0 or len(stream) < int(lengths.sum()):
+        raise ValueError("tag_tokenize: one title or more, lengths >= 0 "
+                         "that the stream holds")
     seps = np.zeros(max_fields, np.uint8)
     match = np.empty(r, np.uint8)
     k = lib.dsrc_tag_structure(_u8(stream), _i64(lengths), r, max_fields,

@@ -42,9 +42,3 @@ def np_unpack_fixed(packed: np.ndarray, n: int, width: int) -> np.ndarray:
 def zigzag(v: np.ndarray) -> np.ndarray:
     v = np.asarray(v, np.int64)
     return ((v << 1) ^ (v >> 63)).astype(np.uint64)
-
-
-def unzigzag(u: np.ndarray) -> np.ndarray:
-    u = np.asarray(u, np.uint64)
-    return ((u >> np.uint64(1)) ^ (np.uint64(0) - (u & np.uint64(1)))).astype(
-        np.int64)

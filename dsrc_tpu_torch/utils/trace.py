@@ -44,7 +44,6 @@ A count (`count(name)`) has no duration and is not a span: it adds to its
 name's count in the totals, under the call of the span open on its thread,
 and shows in table() with no time.  The counts:
 
-  native.fallback  a call of utils/native.py served by its numpy fallback
   dna.<scheme>     the bases of a block's DNA stream that scheme <scheme>
                    (models/dna.py: EMPTY, PACK2, CTX4, CTX8, CTX4P, CTX8P,
                    A19, RAW) coded or decoded

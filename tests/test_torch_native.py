@@ -1,35 +1,40 @@
 """The port's native host library (dsrc_tpu_torch/utils/native.py) on the CPU.
 
-- Each entry point (scan_records, stage_semi, layout_records,
-  compact_payload and its right-aligned form, expand_payload) gives the
-  same bytes from the library built at first use as from its numpy
-  fallback: an 8 MB SEMI block of the benchmark's generator, GENERIC
-  records of varying length, colour space, plus_repetition, and the blocks
-  stage_semi rejects.
+- Each entry point (scan_records, stage_semi, layout_records) gives the
+  same bytes from the library built at first use as dsrc_tpu's numpy
+  fallback (dsrc_tpu/utils/native.py with its library out of the way): an
+  8 MB SEMI block of the benchmark's generator, GENERIC records of varying
+  length, colour space, plus_repetition, and the blocks stage_semi
+  rejects.
 - The build: the library's name follows the source and the flags;
   processes that start together build it once; without g++, or when the
-  build fails, the fallbacks serve, each call counts native.fallback, and
-  the bytes are the same.
-- Archives of slices of the four traffic mixes are the same bytes with
-  and without the library, and decompress to their input; with the
-  library no call counts native.fallback (tests/test_torch_tag_native.py
+  build fails, the first call raises DsrcException naming the compiler,
+  and no library file is left.
+- Archives of slices of the four traffic mixes are the bytes dsrc_tpu
+  writes and decompress to their input (tests/test_torch_tag_native.py
   holds the tag coder's passes one by one).
 """
 import importlib.util
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+from dsrc_tpu import api as JAPI
+from dsrc_tpu.config import InputParameters as JaxParams
+from dsrc_tpu.utils import native as JNATIVE
 from dsrc_tpu_torch import cli
 from dsrc_tpu_torch.api import DsrcModule
-from dsrc_tpu_torch.config import InputParameters
-from dsrc_tpu_torch.utils import native, trace
+from dsrc_tpu_torch.config import DsrcException, InputParameters
+from dsrc_tpu_torch.models import tag as TTAG
+from dsrc_tpu_torch.utils import native
 from dsrc_tpu_torch.utils.synth import make_fastq
+from torch_jax_codec import jax_codec  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,16 +68,13 @@ FASTQ = {
 }
 
 
-def both(fn, *args):
-    """fn(*args) from the library, then from the numpy fallback."""
-    assert native.available(), "g++ builds the library here"
-    lib = fn(*args)
-    real = native._load
-    native._load = lambda: None
-    try:
-        return lib, fn(*args)
-    finally:
-        native._load = real
+def both(name, *args):
+    """native.<name>(*args) from the port's library, then from dsrc_tpu's
+    numpy fallback."""
+    lib = getattr(native, name)(*args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JNATIVE, "_load", lambda: None)
+        return lib, getattr(JNATIVE, name)(*args)
 
 
 def same(a, b) -> bool:
@@ -113,7 +115,7 @@ def test_scan_records_matches_fallback(name, lines_before):
            "no-newline": lambda: _u8(b"@r1 no newline"),
            "empty": lambda: np.zeros(0, np.uint8)}.get(
         name, FASTQ.get(name))()
-    lib, fb = both(native.scan_records, buf, lines_before)
+    lib, fb = both("scan_records", buf, lines_before)
     assert lib == fb
 
 
@@ -123,7 +125,7 @@ def test_stage_semi_matches_fallback(name):
     buf = FASTQ[name]()
     read_len = len(buf.tobytes().split(b"\n", 2)[1])
     rpad = len(buf) // (2 * read_len + 6) + 257
-    lib, fb = both(native.stage_semi, buf, read_len, rpad)
+    lib, fb = both("stage_semi", buf, read_len, rpad)
     assert same(lib, fb)
     # only fixed-length ACGTN reads with a bare '+' line stage
     assert (lib is not None) == (name == "semi-8mb")
@@ -166,7 +168,7 @@ def test_stage_semi_rejections_match_fallback(kind):
         read_len = 99
     else:
         b = _mutated(kind)
-    lib, fb = both(native.stage_semi, b, read_len, rpad)
+    lib, fb = both("stage_semi", b, read_len, rpad)
     assert lib is None and fb is None
 
 
@@ -176,27 +178,10 @@ def test_layout_records_matches_fallback(name):
     buf = FASTQ[name]()
     n, t, tl, s, q, ql, prim, plus = streams(buf, name == "colour")
     assert plus == (name == "plus-rep")
-    lib, fb = both(native.layout_records, n, t, tl, s, q, ql, prim,
+    lib, fb = both("layout_records", n, t, tl, s, q, ql, prim,
                    name == "colour", plus)
     assert same(lib, fb)
     assert lib.tobytes() == buf.tobytes()
-
-
-@pytest.mark.parametrize("shape", [(1, 1), (257, 33), (4096, 130)])
-@pytest.mark.parametrize("fn", ["compact", "compact_right", "expand"])
-def test_payload_matches_fallback(fn, shape):
-    rng = np.random.default_rng(shape[0])
-    payload = rng.integers(0, 1 << 16, shape).astype(np.int32)
-    nwords = rng.integers(0, shape[1] + 1, shape[0]).astype(np.int32)
-    if fn == "expand":
-        words = native.compact_payload(payload, nwords)
-        lib, fb = both(native.expand_payload, words, nwords, shape[1])
-        mask = np.arange(shape[1])[None, :] < nwords[:, None]
-        assert np.array_equal(lib[mask], payload[mask])
-    else:
-        lib, fb = both(native.compact_payload, payload, nwords,
-                       fn == "compact_right")
-    assert same(lib, fb)
 
 
 def test_lib_name_follows_source_and_flags(tmp_path, monkeypatch):
@@ -241,46 +226,26 @@ def test_parallel_first_uses_build_once(tmp_path):
 
 
 @pytest.mark.parametrize("compiler", ["missing", "failing"])
-def test_no_library_falls_back_and_counts(tmp_path, monkeypatch, compiler):
-    buf = SEMI_8MB[:500_000]
-    nl = np.flatnonzero(buf == 10)
-    buf = buf[:nl[4 * (len(nl) // 4) - 1] + 1]
-    payload = np.arange(60, dtype=np.int32).reshape(6, 10)
-    nwords = np.array([0, 3, 10, 1, 7, 2], np.int32)
-
-    def calls():
-        qm, sm, tstream, tl, n = native.stage_semi(
-            buf, 100, len(buf) // 206 + 257)
-        words = native.compact_payload(payload, nwords)
-        return (native.scan_records(buf, 1), (qm, sm, tstream, tl, n),
-                native.layout_records(n, tstream, tl, sm[:n].reshape(-1),
-                                      qm[:n].reshape(-1),
-                                      np.full(n, 100, np.int64), None,
-                                      False, False),
-                words, native.compact_payload(payload, nwords, True),
-                native.expand_payload(words, nwords, 10))
-
-    assert native.available()
-    want = calls()
-    assert want[2].tobytes() == buf.tobytes()
-    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+def test_no_library_raises_at_first_use(tmp_path, monkeypatch, compiler):
+    buf = SEMI_8MB[:4_000]
+    build = tmp_path / "build"
+    monkeypatch.setattr(native, "BUILD_DIR", str(build))
     monkeypatch.setattr(native, "_compiler", lambda: None if
                         compiler == "missing" else "/bin/false")
-    monkeypatch.setattr(native, "_TRIED", False)
     monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_PATH", None)
-    trace.start(keep=compiler == "missing")
-    try:
-        got = calls()
-    finally:
-        rec = trace.stop()
-    assert not native.available() and native.path() is None
-    assert same(got, want)
-    fb = rec.by_name()[native.FALLBACK]
-    assert (fb.count, fb.seconds, fb.self_seconds) == (6, 0.0, 0.0)
-    assert not any(s.name == native.FALLBACK for s in rec.spans)
-    assert not (tmp_path / "build").exists() or not any(
-        f.endswith(".so") for f in os.listdir(tmp_path / "build"))
+    names = "g++ not found" if compiler == "missing" else "/bin/false exit 1"
+    calls = [lambda: native.scan_records(buf, 0),
+             lambda: native.stage_semi(buf, 100, 64),
+             lambda: native.layout_records(0, buf, np.zeros(0, np.int64),
+                                           buf, buf, np.zeros(0, np.int64),
+                                           None, False, False),
+             lambda: TTAG.tokenize(buf, np.array([len(buf)], np.int64))]
+    for call in calls:
+        with pytest.raises(DsrcException, match=re.escape(names)):
+            call()
+    assert not native.available() and native._LIB is None
+    assert not build.exists() or not any(
+        f.endswith((".so", ".tmp")) for f in os.listdir(build))
 
 
 def test_cli_verbose_names_the_loaded_library(tmp_path, capsys):
@@ -289,39 +254,29 @@ def test_cli_verbose_names_the_loaded_library(tmp_path, capsys):
     arc = tmp_path / "out.xfqz"
     assert cli.main(["c", "-v", str(src), str(arc)], device="cpu") == 0
     err = capsys.readouterr().err
-    assert f"native host library: loaded ({native.lib_path()})" in err
+    assert f"native host library: {native.lib_path()}\n" in err
     assert native.lib_path().startswith(
         os.path.join(ROOT, "build", "dsrc_tpu_torch") + os.sep)
-    assert native.FALLBACK not in err
 
 
+SLICE, BLOCK = 2_000_000, 1 << 20
 MIXES = {"semi-rt-64m": "dsrc-m0", "generic-rt-192m": "dsrc-m1",
          "umi-rt-64m": "dsrc-m0", "iupac-rt-192m": "dsrc-m1-iupac"}
 
 
 @pytest.mark.parametrize("mix", sorted(MIXES))
-def test_traffic_archives_same_with_and_without_library(mix):
+def test_traffic_archives_match_reference(mix, jax_codec):
     with open(os.path.join(BENCH, "traffic", mix + ".json")) as f:
-        data_spec = dict(json.load(f)["data"], bytes=3_000_000)
+        data_spec = dict(json.load(f)["data"], bytes=SLICE)
     with open(os.path.join(BENCH, "configs", MIXES[mix] + ".json")) as f:
-        params = dict(json.load(f)["params"], fastq_block_size_mb=1)
+        params = dict(json.load(f)["params"], fastq_block_size_bytes=BLOCK)
     data = GEN.make_input(data_spec, 7300000013)
-
-    def round_trip():
-        trace.start(keep=False)
-        try:
-            mod = DsrcModule(InputParameters(**params), device="cpu")
-            arc, back = io.BytesIO(), io.BytesIO()
-            mod.compress(io.BytesIO(data), arc)
-            mod.decompress(io.BytesIO(arc.getvalue()), back)
-        finally:
-            rec = trace.stop()
-        fb = rec.by_name().get(native.FALLBACK)
-        return arc.getvalue(), back.getvalue(), fb.count if fb else 0
-
-    (arc_lib, back_lib, n_lib), (arc_fb, back_fb, n_fb) = both(round_trip)
-    # every block's titles pass the tag coder's passes too: tokenize and
-    # classify (mode 2 and GENERIC), and the rendering back
-    assert n_lib == 0 and n_fb >= 3 * 2 + 3 * 3
-    assert arc_lib == arc_fb
-    assert back_lib == data and back_fb == data
+    mod = DsrcModule(InputParameters(**params), device="cpu")
+    arc, back = io.BytesIO(), io.BytesIO()
+    mod.compress(io.BytesIO(data), arc)
+    mod.decompress(io.BytesIO(arc.getvalue()), back)
+    assert back.getvalue() == data and len(data) > BLOCK   # two blocks
+    ref = io.BytesIO()
+    with jax_codec():
+        JAPI.DsrcModule(JaxParams(**params)).compress(io.BytesIO(data), ref)
+    assert arc.getvalue() == ref.getvalue()

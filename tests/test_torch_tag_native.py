@@ -2,26 +2,32 @@
 (dsrc_tpu_torch/models/tag.py through dsrc_tpu_torch/utils/native.py) on
 the CPU.
 
-- tokenize, the field classification, render_value_titles and decode_tags
-  give the same values and bytes from the library as from their numpy
-  fallbacks, on generated titles (the benchmark's `fast`, UMI and
-  `realistic` generators) and on edge cases: ties between modal separator
-  rows and between modal token counts, zero-padded fields, numbers of 9,
-  10, 18 and 19 digits, empty titles, a trailing separator, one token,
-  more than 64 fields, mixed structures with exceptions.
+- tokenize, the field classification, analyze_value_fields,
+  render_value_titles and decode_tags give dsrc_tpu's values and bytes
+  (dsrc_tpu/models/tag.py) on generated titles (the benchmark's `fast`,
+  UMI and `realistic` generators) and on edge cases: ties between modal
+  separator rows and between modal token counts, zero-padded fields,
+  numbers of 9, 10, 18 and 19 digits, empty titles, a trailing separator,
+  one token, more than 64 fields, mixed structures with exceptions.
 - encode_tags -> decode_tags and analyze_value_fields ->
-  render_value_titles give dsrc_tpu's tag bytes (dsrc_tpu/models/tag.py),
-  and the input back.  The device byte coders are replaced in both
-  packages by one that writes the stream and its contexts as they are, so
-  every case runs in milliseconds; tests/test_torch_semi0.py and
-  tests/test_torch_native.py hold the coded streams.
+  render_value_titles give dsrc_tpu's tag bytes and the input back.  The
+  device byte coders are replaced in both packages by one that writes the
+  stream and its contexts as they are, so every case runs in
+  milliseconds; tests/test_torch_semi0.py and tests/test_torch_native.py
+  hold the coded streams.
+- Well-formed sections never reach the numpy renderers.  A malformed
+  section the library declines (a value wider than its pad, exceptions
+  out of order or that do not add up, fields of the wrong length, a value
+  meta that does not fit its matrix) is rendered by them to dsrc_tpu's
+  bytes, or raises what dsrc_tpu raises.
 - A negative value on the render path (a malformed archive): decode_tags
   renders "%d" zero-filled as str.zfill does, natively; a value wider
-  than its pad width goes to numpy (whose zfill truncates or not by
-  version), counted as a fallback.  render_value_titles renders its digit
-  rule for any value.
-- Without the library every pass counts native.fallback; with it none.
+  than its pad width goes to the numpy renderer (whose zfill truncates or
+  not by version).  render_value_titles renders its digit rule for any
+  value.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -30,10 +36,9 @@ from dsrc_tpu.utils.bitio import BitReader as JBitReader
 from dsrc_tpu.utils.bitio import BitWriter as JBitWriter
 from dsrc_tpu_torch.models import tag as TTAG
 from dsrc_tpu_torch.ops.streams import pack_ints
-from dsrc_tpu_torch.utils import native, trace
 from dsrc_tpu_torch.utils.bitio import BitReader, BitWriter
 from torch_threads import one_torch_thread  # noqa: F401
-from test_torch_native import GEN, both, same
+from test_torch_native import GEN, same
 
 FULL = 0xFFFFFFFFFFFFFFFF
 CAP = 1 << 20
@@ -145,11 +150,28 @@ def _table(tt):
                                     tt.match_idx, tt.exc_idx)
 
 
+@contextlib.contextmanager
+def numpy_renders(raise_on_call: bool = False):
+    """The names of the numpy renderers called inside the block, in order
+    (with raise_on_call, a call raises instead)."""
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("_render_tags_numpy", "_render_values_numpy"):
+            real = getattr(TTAG, name)
+
+            def renderer(*args, _name=name, _real=real):
+                calls.append(_name)
+                if raise_on_call:
+                    raise AssertionError(f"{_name} reached")
+                return _real(*args)
+            mp.setattr(TTAG, name, renderer)
+        yield calls
+
+
 @pytest.mark.parametrize("name", sorted(TITLES))
-def test_tokenize_matches_fallback_and_reference(name):
+def test_tokenize_matches_reference(name):
     s, ln = _stream(TITLES[name]())
-    lib, fb = both(lambda: _table(TTAG.tokenize(s, ln)))
-    assert same(lib, fb)
+    lib = _table(TTAG.tokenize(s, ln))
     assert same(lib, _table(JTAG.tokenize(s, ln)))
     if name == "tie-rows":
         assert lib[1].tobytes() == b".:" and list(lib[5]) == list(range(40))
@@ -157,6 +179,16 @@ def test_tokenize_matches_fallback_and_reference(name):
         assert lib[0] == 3 and len(lib[5]) == 30
     elif name == "over-64-fields":
         assert lib is None
+
+
+@pytest.mark.parametrize("stream,lengths", [
+    (b"", []), (b"ab:c", [2, -1, 3]), (b"ab:c", [3, 2])])
+def test_tokenize_rejects_lengths_the_stream_cannot_hold(stream, lengths):
+    """No title, a negative length or a stream shorter than the lengths'
+    sum never reaches the library's pointers."""
+    with pytest.raises(ValueError, match="tag_tokenize"):
+        TTAG.tokenize(np.frombuffer(stream, np.uint8),
+                      np.array(lengths, np.int64))
 
 
 CONST, NUM, TEXT = TTAG.KIND_CONST, TTAG.KIND_NUM, TTAG.KIND_TEXT
@@ -174,15 +206,33 @@ WANT_KINDS = {      # the fields' kinds at 9 and at 18 digits
 }
 
 
+def _reference_classify(stream, tt, max_digits):
+    """_classify's kinds, pads and values by dsrc_tpu's field tests, as its
+    encode_tags (at 18 digits) and analyze_value_fields (at 9) apply them."""
+    kinds = np.full(tt.k, TEXT, np.int32)
+    pads = np.zeros(tt.k, np.int64)
+    vals = [None] * tt.k
+    for f in range(tt.k):
+        start, tlen = tt.tok_start[:, f], tt.tok_len[:, f]
+        if JTAG._is_const(stream, start, tlen):
+            kinds[f] = CONST
+            continue
+        v, pad = JTAG._numeric_values(stream, start, tlen)
+        if v is not None and int(tlen.max()) <= max_digits:
+            kinds[f], pads[f], vals[f] = NUM, pad, v
+    return kinds, pads, vals
+
+
 @pytest.mark.parametrize("max_digits", [9, 18])
 @pytest.mark.parametrize("name", sorted(set(TITLES) - {"over-64-fields"}))
-def test_classify_matches_fallback(name, max_digits):
+def test_classify_matches_reference(name, max_digits):
     s, ln = _stream(TITLES[name]())
     tt = TTAG.tokenize(s, ln)
-    lib, fb = both(TTAG._classify, s, tt, max_digits)
-    assert same(lib[:2], fb[:2])
+    lib = TTAG._classify(s, tt, max_digits)
+    ref = _reference_classify(s, tt, max_digits)
+    assert same(lib[:2], ref[:2])
     for f in np.flatnonzero(lib[0] == TTAG.KIND_NUM):
-        assert same(lib[2][f], fb[2][f])
+        assert same(lib[2][f], ref[2][f])
     want = WANT_KINDS.get(name)
     if want is not None:
         assert list(lib[0]) == want[max_digits]
@@ -197,17 +247,13 @@ def _encode(mod, writer, s, ln, *args):
 
 
 @pytest.mark.parametrize("name", sorted(TITLES))
-def test_encode_decode_match_fallback_and_reference(name, plain_coders):
+def test_encode_decode_match_reference(name, plain_coders):
     titles = TITLES[name]()
     s, ln = _stream(titles)
-
-    def round_trip():
-        blob = _encode(TTAG, BitWriter, s, ln, "cpu")
-        return blob, TTAG.decode_tags(BitReader(blob), len(ln), CAP, "cpu")
-
-    (blob, out), (blob_fb, out_fb) = both(round_trip)
-    assert blob == blob_fb == _encode(JTAG, JBitWriter, s, ln)
-    assert same(out, out_fb)
+    blob = _encode(TTAG, BitWriter, s, ln, "cpu")
+    assert blob == _encode(JTAG, JBitWriter, s, ln)
+    with numpy_renders(raise_on_call=True):
+        out = TTAG.decode_tags(BitReader(blob), len(ln), CAP, "cpu")
     ref = JTAG.decode_tags(JBitReader(blob), len(ln), CAP)
     assert out[0].tobytes() == ref[0].tobytes() == s.tobytes()
     assert np.array_equal(out[1], ref[1]) and np.array_equal(out[1], ln)
@@ -221,11 +267,10 @@ NOT_VALUE_TITLES = {"umi", "mixed-exceptions", "tie-k", "digits-10",
 
 
 @pytest.mark.parametrize("name", sorted(TITLES))
-def test_value_titles_match_fallback_and_reference(name):
+def test_value_titles_match_reference(name):
     s, ln = _stream(TITLES[name]())
-    lib, fb = both(TTAG.analyze_value_fields, s, ln)
-    ref = JTAG.analyze_value_fields(s, ln)
-    assert same(lib, fb) and same(lib, ref)
+    lib = TTAG.analyze_value_fields(s, ln)
+    assert same(lib, JTAG.analyze_value_fields(s, ln))
     if name in VALUE_TITLES:
         assert lib is not None
     elif name in NOT_VALUE_TITLES:
@@ -233,8 +278,8 @@ def test_value_titles_match_fallback_and_reference(name):
     if lib is None:
         return
     vmat, meta = lib
-    got, got_fb = both(TTAG.render_value_titles, vmat, meta, len(ln))
-    assert same(got, got_fb)
+    with numpy_renders(raise_on_call=True):
+        got = TTAG.render_value_titles(vmat, meta, len(ln))
     want = JTAG.render_value_titles(vmat, meta, len(ln))
     assert got[0].tobytes() == want[0].tobytes() == s.tobytes()
     assert same(got[1], want[1])
@@ -244,23 +289,52 @@ NEG_VALUES = np.array([-1, -7, -12, -123456, -(1 << 62), -(1 << 63), 0, 5,
                        (1 << 63) - 1], np.int64)
 
 
-def _num_section(vals, pad: int) -> bytes:
-    """A token-coded tag section by hand: "x" ":" one FS_NUM_VALUE field
-    (zero-padded to pad when pad > 0), no text, no exceptions."""
+def _section(k: int, fields, exc_idx=(), text=b"", exc_lens=(),
+             exc_bytes=b"", seps=None) -> bytes:
+    """A token-coded tag section by hand, its byte streams as plain_coders
+    writes them.  fields: ("c", token) | ("n", values, pad) (FS_NUM_VALUE)
+    | ("rle", run values, run lengths) | ("t", lengths) (FS_TEXT, its bytes
+    in `text`)."""
     w = BitWriter()
     w.put_byte(TTAG.TS_TOK)
-    w.put_varint(2)
-    w.put_bytes(b":")
-    pack_ints(w, np.zeros(0, np.int64))
-    w.put_byte(TTAG.FS_CONST)
-    w.put_varint(1)
-    w.put_bytes(b"x")
-    w.put_byte(TTAG.FS_NUM_VALUE | (TTAG.FS_PAD_FLAG if pad else 0))
-    if pad:
-        w.put_varint(pad)
-    pack_ints(w, vals)
-    w.put_varint(0)          # the (empty) text stream, as plain_coders has it
+    w.put_varint(k)
+    w.put_bytes(b":" * (k - 1) if seps is None else seps)
+    pack_ints(w, np.asarray(exc_idx, np.int64))
+    text_lens, text_fields = {}, []
+    for fk, (kind, *arg) in enumerate(fields):
+        if kind == "c":
+            w.put_byte(TTAG.FS_CONST)
+            w.put_varint(len(arg[0]))
+            w.put_bytes(arg[0])
+        elif kind == "n":
+            vals, pad = arg
+            w.put_byte(TTAG.FS_NUM_VALUE | (TTAG.FS_PAD_FLAG if pad else 0))
+            if pad:
+                w.put_varint(pad)
+            pack_ints(w, np.asarray(vals, np.int64))
+        elif kind == "rle":
+            w.put_byte(TTAG.FS_NUM_RLE)
+            pack_ints(w, np.asarray(arg[0], np.int64))
+            pack_ints(w, np.asarray(arg[1], np.int64))
+        else:
+            w.put_byte(TTAG.FS_TEXT)
+            pack_ints(w, np.asarray(arg[0], np.int64))
+            text_lens[fk] = np.asarray(arg[0], np.int64)
+            text_fields.append(fk)
+    ctx = JTAG._text_ctx(text_lens, text_fields)
+    w.put_varint(len(text))
+    w.put_bytes(text)
+    w.put_bytes(np.asarray(ctx[:len(text)], np.uint8).tobytes())
+    if len(exc_idx):
+        pack_ints(w, np.asarray(exc_lens, np.int64))
+        w.put_varint(len(exc_bytes))
+        w.put_bytes(exc_bytes)
     return w.getvalue()
+
+
+def _num_section(vals, pad: int) -> bytes:
+    """"x" ":" one FS_NUM_VALUE field (zero-padded to pad when pad > 0)."""
+    return _section(2, [("c", b"x"), ("n", vals, pad)])
 
 
 @pytest.mark.parametrize("pad", [0, 3, 21, 30])
@@ -270,18 +344,8 @@ def test_decode_renders_negative_values(which, pad, plain_coders):
     vals = {"negative": NEG_VALUES[:3], "small": np.array([-5, 0, 7, 42]),
             "one-wider": np.array([7, -123, 1234]), "all": NEG_VALUES}[which]
     blob = _num_section(vals, pad)
-
-    def decode():
-        trace.start(keep=False)
-        try:
-            out = TTAG.decode_tags(BitReader(blob), len(vals), CAP, "cpu")
-        finally:
-            rec = trace.stop()
-        fb = rec.by_name().get(native.FALLBACK)
-        return out, fb.count if fb else 0
-
-    (lib, n_lib), (fb, n_fb) = both(decode)
-    assert same(lib, fb)
+    with numpy_renders() as calls:
+        lib = TTAG.decode_tags(BitReader(blob), len(vals), CAP, "cpu")
     ref = JTAG.decode_tags(JBitReader(blob), len(vals), CAP)
     assert lib[0].tobytes() == ref[0].tobytes()
     assert same(lib[1], ref[1])
@@ -290,11 +354,10 @@ def test_decode_renders_negative_values(which, pad, plain_coders):
     if pad == 0 or fits:
         # "%d" and str.zfill: the sign, then the zeros, then the digits
         assert lib[0].tobytes() == text
-        assert n_lib == 0
+        assert calls == []
     else:
-        # wider than the pad: numpy renders it on every path
-        assert n_lib == 1
-    assert n_fb == 1
+        # wider than the pad: the library declines, numpy renders it
+        assert calls == ["_render_tags_numpy"]
 
 
 @pytest.mark.parametrize("fields", [
@@ -310,8 +373,8 @@ def test_render_value_titles_any_value(fields):
     vmat = rng.integers(-(1 << 31), 1 << 31, (n, cols)).astype(np.int32)
     vmat[:8, 0] = [-1, -9, -10, -123, 0, 9, 10, (1 << 31) - 1]
     meta = (len(fields), b":.#"[:len(fields) - 1], fields)
-    lib, fb = both(TTAG.render_value_titles, vmat, meta, n)
-    assert same(lib, fb)
+    with numpy_renders(raise_on_call=True):
+        lib = TTAG.render_value_titles(vmat, meta, n)
     ref = JTAG.render_value_titles(vmat, meta, n)
     assert lib[0].tobytes() == ref[0].tobytes()
     assert same(lib[1], ref[1])
@@ -329,21 +392,86 @@ def test_render_value_titles_pad_past_ten_keeps_numpy():
 
 
 @pytest.mark.parametrize("name", ["umi", "mixed-exceptions", "hiseq"])
-def test_fallback_counted_only_without_library(name, plain_coders):
+def test_titles_never_reach_numpy_renderers(name, plain_coders):
     s, ln = _stream(TITLES[name]())
+    with numpy_renders(raise_on_call=True) as calls:
+        blob = _encode(TTAG, BitWriter, s, ln, "cpu")
+        out = TTAG.decode_tags(BitReader(blob), len(ln), CAP, "cpu")
+        value = TTAG.analyze_value_fields(s, ln)
+        if value is not None:
+            TTAG.render_value_titles(*value, len(ln))
+    assert out[0].tobytes() == s.tobytes() and calls == []
 
-    def calls():
-        trace.start(keep=False)
-        try:
-            blob = _encode(TTAG, BitWriter, s, ln, "cpu")
-            TTAG.decode_tags(BitReader(blob), len(ln), CAP, "cpu")
-            TTAG.analyze_value_fields(s, ln)
-        finally:
-            rec = trace.stop()
-        fb = rec.by_name().get(native.FALLBACK)
-        return fb.count if fb else 0
 
-    n_lib, n_fb = both(calls)
-    assert n_lib == 0
-    # tokenize twice, classify once or twice, render once
-    assert n_fb >= 4
+X3 = [("c", b"x"), ("n", [1, 2, 3], 0)]        # "x:1" "x:2" "x:3"
+MALFORMED_TAGS = {   # (num_rec, section) of a section the library declines
+    "no-fields": (3, lambda: _section(0, [])),
+    "more-exceptions-than-records": (3, lambda: _section(
+        2, X3, exc_idx=[0, 1, 2, 3], exc_lens=[1, 1, 1, 1],
+        exc_bytes=b"abcd")),
+    "exception-lengths-count": (4, lambda: _section(
+        2, X3, exc_idx=[1], exc_lens=[2, 2], exc_bytes=b"abcd")),
+    "exception-lengths-bytes": (4, lambda: _section(
+        2, X3, exc_idx=[1], exc_lens=[5], exc_bytes=b"abc")),
+    "negative-exception-length": (5, lambda: _section(
+        2, X3, exc_idx=[1, 3], exc_lens=[-2, 4], exc_bytes=b"ab")),
+    "exceptions-out-of-order": (5, lambda: _section(
+        2, X3, exc_idx=[3, 1], exc_lens=[2, 3], exc_bytes=b"abcde")),
+    "numeric-field-long": (3, lambda: _section(
+        2, [("c", b"x"), ("n", [1, 2, 3, 4], 0)])),
+    "numeric-field-short": (3, lambda: _section(
+        2, [("c", b"x"), ("n", [1, 2], 0)])),
+    "rle-runs-short": (4, lambda: _section(
+        2, [("c", b"x"), ("rle", [7, 9], [1, 2])])),
+    "pad-over-64": (3, lambda: _section(
+        2, [("c", b"x"), ("n", [1, 22, 333], 65)])),
+    "value-wider-than-pad": (3, lambda: _section(
+        2, [("c", b"x"), ("n", [1, 22, 4444], 3)])),
+    "text-lengths-count": (3, lambda: _section(
+        2, [("c", b"x"), ("t", [2, 2])], text=b"abcd")),
+    "text-lengths-sum": (3, lambda: _section(
+        2, [("c", b"x"), ("t", [2, 2, 6])], text=b"abcdef")),
+}
+MALFORMED_VALUES = {   # (vmat, meta, num_rec) render_value_titles declines
+    "values-too-few-columns": lambda: (
+        np.arange(4, dtype=np.int32)[:, None],
+        (3, b"::", [(TTAG.TOKF_NUM, None), (TTAG.TOKF_CONST, b"r"),
+                    (TTAG.TOKF_NUM, None)]), 4),
+    "values-num-rec-past-matrix": lambda: (
+        np.arange(4, dtype=np.int32)[:, None],
+        (2, b":", [(TTAG.TOKF_CONST, b"r"), (TTAG.TOKF_NUM, None)]), 6),
+}
+
+
+def _outcome(fn):
+    """fn()'s (titles bytes, lengths), or the type of what it raised."""
+    try:
+        titles, lens = fn()
+    except Exception as e:     # noqa: BLE001 -- the type is the result
+        return type(e)
+    return np.asarray(titles).tobytes(), np.asarray(lens, np.int64).tolist()
+
+
+@pytest.mark.parametrize("name", sorted(MALFORMED_TAGS)
+                         + sorted(MALFORMED_VALUES))
+def test_malformed_section_renders_as_reference(name, plain_coders):
+    """A malformed tag section the library declines decodes to dsrc_tpu's
+    bytes or raises what it raises, through the numpy renderer."""
+    if name in MALFORMED_TAGS:
+        num_rec, section = MALFORMED_TAGS[name]
+        blob = section()
+        with numpy_renders() as calls:
+            got = _outcome(lambda: TTAG.decode_tags(
+                BitReader(blob), num_rec, CAP, "cpu"))
+        want = _outcome(lambda: JTAG.decode_tags(
+            JBitReader(blob), num_rec, CAP))
+        assert calls == ["_render_tags_numpy"]
+    else:
+        vmat, meta, num_rec = MALFORMED_VALUES[name]()
+        with numpy_renders() as calls:
+            got = _outcome(lambda: TTAG.render_value_titles(
+                vmat, meta, num_rec))
+        want = _outcome(lambda: JTAG.render_value_titles(
+            vmat, meta, num_rec))
+        assert calls == ["_render_values_numpy"]
+    assert got == want

@@ -348,19 +348,19 @@ def test_folded_sessions_keep_no_spans():
 def test_count_has_no_duration_and_joins_the_table(keep):
     """A count adds to its name's count under the call of the span open on
     its thread, makes no span and no time, and shows in table()."""
-    trace.count("native.fallback")                 # off: nothing
+    trace.count("dna.A19")                 # off: nothing
     trace.start(keep=keep)
     with trace.op("decompress") as root:
         with trace.span("codec.serialize"):
-            trace.count("native.fallback")
-        trace.count("native.fallback", 2)
-    trace.count("native.fallback")                 # outside any call
+            trace.count("dna.A19")
+        trace.count("dna.A19", 2)
+    trace.count("dna.A19")                 # outside any call
     rec = trace.stop()
-    assert rec.by_name(root.op)["native.fallback"] == (0.0, 0.0, 3, 0)
-    assert rec.by_name()["native.fallback"].count == 4
-    assert all(s.name != "native.fallback" for s in rec.spans)
+    assert rec.by_name(root.op)["dna.A19"] == (0.0, 0.0, 3, 0)
+    assert rec.by_name()["dna.A19"].count == 4
+    assert all(s.name != "dna.A19" for s in rec.spans)
     assert rec.by_name()["codec.serialize"].count == 1
-    row = [ln for ln in trace.table(rec) if ln.startswith("native.fallback")]
+    row = [ln for ln in trace.table(rec) if ln.startswith("dna.A19")]
     assert row and row[0].split()[1:3] == ["0.000", "4"]
 
 
