@@ -3,12 +3,12 @@ and of the reference's `dsrc::lib::DsrcModule` (DsrcModule.h:22).
 
 `DsrcModule(device=...).compress/decompress` drive the pipeline: chunker ->
 first-block dataset analysis -> BlockCodec -> archive, with block 0 run
-inline and the rest on worker threads (parallel/pipeline.py), as dsrc_tpu
-does on one device.  The device defaults to "cuda"; "cpu" runs the plain
-PyTorch versions of the kernels.  Where two or more cards are visible,
-UNIFORM and title mode 2 SEMI blocks run in batches of one block a card
-(parallel/mesh.py); `compress(..., distributed=True)` splits the blocks
-among the processes of a torch.distributed group
+inline while a reader thread reads the blocks after it, and the rest on
+worker threads (parallel/pipeline.py).  The device defaults to "cuda";
+"cpu" runs the plain PyTorch versions of the kernels.  Where two or more
+cards are visible, UNIFORM and title mode 2 SEMI blocks run in batches of
+one block a card (parallel/mesh.py); `compress(..., distributed=True)`
+splits the blocks among the processes of a torch.distributed group
 (parallel/distributed.py).  Every path writes the one-device bytes.
 """
 from __future__ import annotations
@@ -183,7 +183,17 @@ class DsrcModule:
         info_total = StreamsInfo()
         try:
             chunker = FastqChunker(src, block_size)
-            first = _read(chunker.next_block, root)
+            nrecs = []              # the chunker's record counts, in order
+
+            def read():
+                got = _read(chunker.next_with_count, root,
+                            lambda got: len(got[0]))
+                if got is None:
+                    return None
+                nrecs.append(got[1])
+                return got[0]
+
+            first = read()
             if first is None:
                 raise DsrcException("empty FASTQ input")
             with trace.span("api.analyze", len(first)):
@@ -202,7 +212,7 @@ class DsrcModule:
 
             def rest():
                 while True:
-                    block = _read(chunker.next_block, root)
+                    block = read()
                     if block is None:
                         return
                     yield check(block)
@@ -215,7 +225,7 @@ class DsrcModule:
                             not codec.verify_checksum(blob):
                         raise DsrcException("CRC32 verification failed "
                                             "while compressing")
-                    return blob, _count_records(block), info
+                    return blob, nrecs[index], info
 
             all_blocks = enumerate(itertools.chain([check(first)], rest()))
             # the mesh only when the first block is a mesh class (UNIFORM or
@@ -226,19 +236,13 @@ class DsrcModule:
                     or codec.stage_semi_tok_for_mesh(first) is not None):
                 results = _mesh_compress_results(all_blocks, codec, job, mesh)
             else:
-                workers = params.num_workers or 2
-                # block 0 runs inline: when it is a semi block it seeds the
-                # semi hints before worker threads start; a later block that
-                # seeds one waits for the blocks before it
-                # (BlockCodec.seed_order)
-                head = [job(next(all_blocks))]
-                if workers > 1:
-                    results = itertools.chain(
-                        head, ordered_parallel_map(
-                            all_blocks, job, workers,
-                            on_error=codec.seed_order.cancel))
-                else:
-                    results = itertools.chain(head, map(job, all_blocks))
+                # block 0 runs inline while the reader reads the blocks
+                # after it: when it is a semi block it seeds the semi hints
+                # before worker threads start; a later block that seeds one
+                # waits for the blocks before it (BlockCodec.seed_order)
+                results = ordered_parallel_map(
+                    all_blocks, job, params.num_workers or 2,
+                    on_error=codec.seed_order.cancel, head=True)
             for blob, nrec, info in results:
                 with trace.span("api.write", len(blob)):
                     writer.write_block(blob, nrec)
@@ -286,14 +290,9 @@ class DsrcModule:
                     head_blob[0] in (BLOCK_UNIFORM, BLOCK_SEMI):
                 texts = _mesh_decompress_results(blobs, codec, mesh)
             else:
-                workers = self.params.num_workers or 2
-                indexed = enumerate(blobs)
-                head = [decode(b) for b in itertools.islice(indexed, 1)]
-                if workers > 1:
-                    texts = itertools.chain(
-                        head, ordered_parallel_map(indexed, decode, workers))
-                else:
-                    texts = itertools.chain(head, map(decode, indexed))
+                texts = ordered_parallel_map(
+                    enumerate(blobs), decode, self.params.num_workers or 2,
+                    head=True)
             for text in texts:
                 with trace.span("api.write", text.nbytes):
                     dst.write(text.tobytes())
@@ -303,17 +302,20 @@ class DsrcModule:
             reader.close()
 
 
-def _read(next_block, root):
-    """next_block() in an api.read span (on the reader thread, under the
-    call's root span), with the bytes it read."""
+def _read(next_item, root, nbytes=len):
+    """next_item() in an api.read span (on the reader thread, under the
+    call's root span), with the bytes it read: nbytes of what it
+    returned."""
     with trace.span("api.read", under=root) as sp:
-        block = next_block()
-        if sp is not None and block is not None:
-            sp.nbytes = len(block)
-        return block
+        got = next_item()
+        if sp is not None and got is not None:
+            sp.nbytes = nbytes(got)
+        return got
 
 
 def _count_records(block: np.ndarray) -> int:
+    """The records of a block of whole records, by its newlines (the
+    chunker counts them as it cuts a block: FastqChunker.next_with_count)."""
     return int(np.count_nonzero(block == 10)) // 4
 
 

@@ -8,17 +8,21 @@ newline count identifies record boundaries unambiguously — a chunk ends after
 the last newline whose cumulative line index is a multiple of 4.  The cut
 tail is carried into the next chunk.
 
-Newline scanning is vectorized (numpy) with an optional C++ fast path
-(native/ runtime).
+Each block is read once: into a buffer of its own (`readinto`, or `read` and
+one copy for a source without it), behind the tail the previous block left,
+and returned as a view.  The native library's record scan (utils/native.py)
+gives the cut and the block's line count.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from ..config import DsrcException
 from ..utils.native import scan_records as _count_and_last_boundary
+
+_EMPTY = np.empty(0, np.uint8)
 
 
 class FastqChunker:
@@ -30,8 +34,9 @@ class FastqChunker:
 
     def __init__(self, source, block_size: int):
         self._source = source
+        self._readinto = getattr(source, "readinto", None)
         self._block_size = max(block_size, 1 << 12)
-        self._tail = b""
+        self._tail = _EMPTY
         self._lines_seen = 0
         self._eof = False
 
@@ -43,40 +48,58 @@ class FastqChunker:
             yield chunk
 
     def next_block(self) -> Optional[np.ndarray]:
-        if self._eof and not self._tail:
+        got = self.next_with_count()
+        return None if got is None else got[0]
+
+    def next_with_count(self) -> Optional[Tuple[np.ndarray, int]]:
+        """The next block and the number of records in it, or None at the
+        end of the input."""
+        if self._eof and not len(self._tail):
             return None
-        parts = [self._tail]
+        # the spare byte holds the final newline when the input lacks one
+        buf = np.empty(self._block_size + 1, np.uint8)
         size = len(self._tail)
-        self._tail = b""
+        buf[:size] = self._tail
         while size < self._block_size and not self._eof:
-            data = self._source.read(self._block_size - size)
-            if not data:
+            n = self._fill(buf[size:self._block_size])
+            if not n:
                 self._eof = True
                 break
-            parts.append(data)
-            size += len(data)
-        buf = b"".join(parts)
-        if not buf:
+            size += n
+        if not size:
             return None
         if self._eof:
-            if not buf.endswith(b"\n"):
-                buf += b"\n"  # terminate final record
-            arr = np.frombuffer(buf, dtype=np.uint8)
+            if buf[size - 1] != 10:
+                buf[size] = 10  # terminate final record
+                size += 1
+            arr = buf[:size]
             nl, _ = _count_and_last_boundary(arr, self._lines_seen)
             if (self._lines_seen + nl) % 4 != 0:
                 raise DsrcException(
                     "malformed FASTQ: total line count not a multiple of 4")
             self._lines_seen += nl
-            return arr
-        arr = np.frombuffer(buf, dtype=np.uint8)
+            self._tail = _EMPTY
+            return arr, nl // 4
+        arr = buf[:size]
         nl, cut = _count_and_last_boundary(arr, self._lines_seen)
         if cut < 0:
             # no full record in a whole block: grow by retrying with a
             # larger effective block (pathological ultra-long records)
-            self._tail = buf
+            self._tail = arr
             self._block_size *= 2
-            return self.next_block()
-        self._tail = buf[cut:]
-        cut_lines = np.count_nonzero(arr[:cut] == 10)
-        self._lines_seen += int(cut_lines)
-        return arr[:cut].copy()
+            return self.next_with_count()
+        # the lines up to the cut: the scan's count less the tail's, which
+        # are fewer than a record's
+        cut_lines = nl - (self._lines_seen + nl) % 4
+        self._tail = arr[cut:]
+        self._lines_seen += cut_lines
+        return arr[:cut], cut_lines // 4
+
+    def _fill(self, view: np.ndarray) -> int:
+        """Read at most len(view) bytes of the source into view; 0 at the
+        end of the input."""
+        if self._readinto is not None:
+            return self._readinto(memoryview(view)) or 0
+        data = self._source.read(len(view)) or b""
+        view[:len(data)] = np.frombuffer(data, np.uint8)
+        return len(data)

@@ -22,6 +22,7 @@ output path lies on a filesystem that every process shares.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,13 +39,6 @@ from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 _NONE = 1 << 62             # no block of this process seeds the hint
 _MAX_FIELDS = 16            # title mode 2 takes at most 16 numeric fields
-
-
-def _blocks(first, chunker):
-    block = first
-    while block is not None:
-        yield block
-        block = chunker.next_block()
 
 
 def own_hint_seeds(codec: BlockCodec, own: dict) -> np.ndarray:
@@ -83,7 +77,7 @@ def compress_distributed(fastq_path: str, dsrc_path: str,
     cuda:{local_rank % device_count}).  Byte-identical to the
     single-process archive."""
     import torch.distributed as dist
-    from ..api import _count_records, analyze_first_block
+    from ..api import analyze_first_block
     if not (dist.is_available() and dist.is_initialized()):
         raise DsrcException(
             "distributed compression needs a torch.distributed process "
@@ -100,20 +94,21 @@ def compress_distributed(fastq_path: str, dsrc_path: str,
     nrecs = []
     with open(fastq_path, "rb") as src:
         chunker = FastqChunker(src, block_size)
-        first = chunker.next_block()
+        first = chunker.next_with_count()
         if first is None:
             raise DsrcException("empty FASTQ input")
-        dataset = analyze_first_block(first, shape, params.quality_offset,
+        dataset = analyze_first_block(first[0], shape, params.quality_offset,
                                       dev)
         codec = BlockCodec(shape, settings, dataset, dev)
-        for i, block in enumerate(_blocks(first, chunker)):
+        blocks = itertools.chain([first], iter(chunker.next_with_count, None))
+        for i, (block, nrec) in enumerate(blocks):
             if len(block) > shape.cap:
                 raise DsrcException(
                     "FASTQ record larger than the block size; "
                     "increase the block size (-b)")
-            nrecs.append(_count_records(block))
+            nrecs.append(nrec)
             if i % world == rank:
-                mine[i] = np.array(block)           # own a copy
+                mine[i] = block         # a view of a buffer of its own
     nblocks = len(nrecs)
 
     nccl = dist.get_backend() == "nccl"

@@ -49,7 +49,8 @@ class _ErrorSlot:
 
 def ordered_parallel_map(items: Iterator, fn: Callable, num_workers: int,
                          depth: int = 0,
-                         on_error: Optional[Callable[[], None]] = None):
+                         on_error: Optional[Callable[[], None]] = None,
+                         head: bool = False):
     """Apply fn to items on worker threads, yielding results in input order.
 
     The in-queue is bounded (backpressure like TDataPool); workers take
@@ -57,21 +58,30 @@ def ordered_parallel_map(items: Iterator, fn: Callable, num_workers: int,
     reference's ordered writers.  Exceptions from any thread are re-raised
     in the consumer; on_error runs at the first one (to release calls of fn
     that wait on one another: items left after an error are skipped).
+
+    head: fn of the first item runs on the calling thread before any
+    worker starts (the first block seeds what later blocks wait on), while
+    the reader already queues the items after it; the number it had queued
+    when the head returned is counted as api.read_ahead.  An error of the
+    head stops the reader before it is raised.
     """
     num_workers = max(1, num_workers)
     depth = depth or num_workers * 4
     inq: "queue.Queue" = queue.Queue(maxsize=depth)
     outq: "queue.Queue" = queue.Queue()
     err = _ErrorSlot(on_error)
+    items = iter(items)
+    first = next(items, _STOP) if head else _STOP
+    start = 0 if first is _STOP else 1
+    queued = [0]
 
     def reader():
         try:
-            i = 0
-            for item in items:
-                if err.error is not None:
-                    break
+            for i, item in enumerate(items, start):
                 inq.put((i, item))
-                i += 1
+                queued[0] += 1
+                if err.error is not None:   # read no further
+                    break
         except BaseException as e:  # noqa: BLE001 — propagated to consumer
             err.set(e)
         finally:
@@ -94,14 +104,27 @@ def ordered_parallel_map(items: Iterator, fn: Callable, num_workers: int,
                 outq.put(_STOP)
                 return
 
-    threads = [threading.Thread(target=reader, daemon=True)]
-    threads += [threading.Thread(target=worker, daemon=True)
-                for _ in range(num_workers)]
-    for t in threads:
+    reading = threading.Thread(target=reader, daemon=True)
+    workers = [threading.Thread(target=worker, daemon=True)
+               for _ in range(num_workers)]
+    done = []                   # the head's result
+    reading.start()
+    if first is not _STOP:
+        try:
+            done.append(fn(first))
+        except BaseException as e:  # noqa: BLE001
+            err.set(e)
+            for t in workers:       # they drain the in-queue
+                t.start()
+            reading.join()
+            raise err.error         # the first: the head's or the reader's
+        trace.count("api.read_ahead", queued[0])
+    for t in workers:
         t.start()
+    yield from done
 
     hold = {}
-    next_id = 0
+    next_id = start
     stops = 0
     try:
         while stops < num_workers:

@@ -47,6 +47,9 @@ and shows in table() with no time.  The counts:
   dna.<scheme>     the bases of a block's DNA stream that scheme <scheme>
                    (models/dna.py: EMPTY, PACK2, CTX4, CTX8, CTX4P, CTX8P,
                    A19, RAW) coded or decoded
+  api.read_ahead   the blocks (archive blobs in a decompress) the reader
+                   thread had queued when block 0's job returned on the
+                   calling thread, once a call (parallel/pipeline.py)
 
 Clock: start() takes one (perf_counter_ns, time_ns) pair, `anchor`.  A
 Chrome trace exported by torch.profiler (Kineto) stamps its events in

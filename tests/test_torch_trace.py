@@ -41,6 +41,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK = 1 << 17
+READ_AHEAD = "api.read_ahead"
 STAGES = ("codec.stage", "codec.tag", "codec.model", "codec.serialize")
 CONVERSIONS = ("item", "tolist", "numpy", "__int__", "__bool__",
                "__float__", "__index__")
@@ -230,11 +231,11 @@ def test_codec_stages_partition_the_codec_time(runs, name):
     assert all(by_id[s.parent].name != trace.SYNC for s in spans
                if s.parent in by_id)
     # the folded totals are the spans' self times and counts; a count
-    # (dna.<scheme>, the bases a DNA scheme coded) is no span and has no
-    # duration
+    # (dna.<scheme>, the bases a DNA scheme coded; api.read_ahead) is no
+    # span and has no duration
     for nm, t in rec.by_name().items():
         mine = [s for s in spans if s.name == nm]
-        if nm.startswith("dna."):
+        if nm.startswith("dna.") or nm == READ_AHEAD:
             assert not mine and t.seconds == t.self_seconds == 0
             continue
         assert t.count == len(mine)
@@ -259,6 +260,39 @@ def test_last_stage_times_read_the_recorder(runs):
         len(runs["semi2"]["data"])
     assert 0 < st["api.write"].nbytes < len(runs["semi2"]["traced"])
     assert all(t.seconds > 0 for t in st.values())
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_read_ahead_counted_once_a_call(runs, name):
+    """api.read_ahead: the blocks the reader had queued when block 0's job
+    returned, at most the blocks after it and the in-queue's depth (two
+    workers: 8), once a call; never a span."""
+    rec = runs[name]["rec"]
+    nblocks = ArchiveReader(io.BytesIO(runs[name]["plain"])).num_blocks
+    roots = [s for s in rec.spans if s.name.startswith("op.")]
+    assert len(roots) == 2
+    for root in roots:
+        t = rec.by_name(root.op)[READ_AHEAD]
+        assert 0 <= t.count <= min(nblocks - 1, 8)
+        assert t.seconds == t.self_seconds == t.nbytes == 0
+    assert not [s for s in rec.spans if s.name == READ_AHEAD]
+
+
+def test_read_ahead_not_recorded_while_the_recorder_is_off(monkeypatch):
+    calls = []
+    real = trace.count
+    monkeypatch.setattr(trace, "count",
+                        lambda *a: (calls.append(a), real(*a)))
+
+    def no_record():
+        raise AssertionError("recorded with the recorder off")
+    monkeypatch.setattr(trace, "_buffer", no_record)
+    data = make_fastq_fast(1200, 100, seed=9)
+    arch = io.BytesIO()
+    _module({}).compress(io.BytesIO(data), arch)
+    assert ArchiveReader(io.BytesIO(arch.getvalue())).num_blocks >= 3
+    # one count call a compress, which records nothing
+    assert [c[0] for c in calls if c[0] == READ_AHEAD] == [READ_AHEAD]
 
 
 def test_nested_spans_on_two_threads():
