@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""Run one cell of the benchmark once with the program's recorder on
-(dsrc_tpu_torch/utils/trace.py), and read what it recorded.
+"""Run one cell of the benchmark once, as run.py does, and print beside its
+result what the program's own recorder (dsrc_tpu_torch/utils/trace.py)
+shows that the result line does not.
 
     python3 benchmark/stages.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1> [--recorder <0|1>]
     python3 benchmark/stages.py --span-cost <n>
 
-From the root of a checkout, on an NVIDIA card, as run.py runs a cell; the
-recorder is turned on around the window (every span kept) and off after.
+From the root of a checkout, on an NVIDIA card, as run.py runs a cell.
 The last line on standard output is one JSON object:
 
-  --trace 1   run.py's result line (the cell's per-layer metrics and its
-              breakdown), and under "program": the metrics that read the
-              program's spans (stage_ms_per_MiB.<stage>.<op>,
-              syncs_per_MiB.<op>, block0_share.<op>: benchmark/metrics/),
-              the breakdown with the program's spans among the host
-              events, the idle seconds that run.py's breakdown puts down
-              to a BlockCodec call and those the spans name by a codec
-              stage, and the trace's offset from the host clock by the
-              recorder's anchor beside record.trace_offset_us's estimate.
+  --trace 1   run.py's result line (the cell's per-layer metrics, those
+              that read the program's spans and counts among them, and its
+              breakdown, whose idle gaps the program's spans name), and
+              under "program": the codec's ms a MiB beside the sum of its
+              six stages, the count of spans and syncs, the idle seconds
+              that the benchmark's BlockCodec spans put down to a
+              BlockCodec call (run.py's naming before the program's spans)
+              and those the program's spans name by a codec stage, with and
+              without the calling thread's waits, and the trace's offset
+              from the host clock by the recorder's anchor beside
+              record.trace_offset_us's estimate.
   --trace 0   run.py's untraced result line (the end-to-end metrics), with
-              the recorder on (--recorder 1, the default) or off: the
+              the recorder on around the window (--recorder 1, the
+              default; run.py never turns it on untraced) or off: the
               recorder's cost, seed against seed.
   --span-cost n   ns per span entered and left, recorder off and on (n
               spans each), on this host's CPU; no card needed.
@@ -41,49 +44,18 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 OPS = ("compress", "decompress")
 STAGE_NAMES = ("stage", "tag", "model", "sync", "serialize", "other")
-METRICS = [f"stage_ms_per_MiB.{s}.{op}" for op in OPS for s in STAGE_NAMES] \
-    + [f"syncs_per_MiB.{op}" for op in OPS] \
-    + [f"block0_share.{op}" for op in OPS]
 CODEC_STAGES = ("codec.stage", "codec.tag", "codec.model",
                 "codec.serialize", "codec.sync")
 
 
-class Recorder:
-    """The program's recorder on around a window: `faults=` of
-    cell.run_window (a context manager entered around the window)."""
-
-    def __enter__(self):
-        from dsrc_tpu_torch.utils import trace
-        trace.start(keep=True)
-        return self
-
-    def __exit__(self, *exc):
-        from dsrc_tpu_torch.utils import trace
-        self.rec = trace.stop()
-        return False
-
-
-def keep_base_time(trace_mod) -> dict:
-    """yardstick.trace.parse wrapped to keep the Chrome trace's
-    baseTimeNanoseconds, which it drops: {"base_ns": ...} once parsed."""
-    seen = {}
-    real = trace_mod.parse
-
-    def parse(chrome):
-        if isinstance(chrome, dict) and "baseTimeNanoseconds" in chrome:
-            seen["base_ns"] = int(chrome["baseTimeNanoseconds"])
-        return real(chrome)
-    trace_mod.parse = parse
-    return seen
-
-
 def idle_by_name(run, program_events=None) -> dict:
-    """Every idle gap's seconds by what record.breakdown names it; with
-    program_events, those among the trace's host events in place of the
-    benchmark's BlockCodec spans (the program's codec.compress and
-    .decompress spans are the same calls, on the anchor's clock rather
-    than record.trace_offset_us's estimate)."""
+    """Every idle gap's seconds by what record.breakdown names it: by the
+    benchmark's BlockCodec spans, or with program_events by those among
+    the trace's host events (the program's codec.compress and .decompress
+    spans are the same calls, on the anchor's clock rather than
+    record.trace_offset_us's estimate)."""
     from yardstick import record
+    run = dataclasses.replace(run, program=None)
     if program_events is not None:
         tr = dataclasses.replace(run.trace, host=sorted(
             run.trace.host + list(program_events)))
@@ -92,13 +64,11 @@ def idle_by_name(run, program_events=None) -> dict:
 
 
 def program_part(run, prog) -> dict:
-    from yardstick import program, record, spec
-    readers = {m: spec.load_reader(BENCH_DIR, m)[1] for m in METRICS}
-    res = {"metrics": {m: readers[m](run) for m in METRICS}}
-    run_codec = {k: record.codec_ms_per_mib(run, k) for k in OPS}
-    res["codec_ms_per_MiB"] = run_codec
+    from yardstick import program, record
+    res = {"codec_ms_per_MiB": {k: record.codec_ms_per_mib(run, k)
+                                for k in OPS}}
     res["stage_sum_ms_per_MiB"] = {
-        k: sum(res["metrics"][f"stage_ms_per_MiB.{s}.{k}"] or 0.0
+        k: sum(program.stage_ms_per_mib(run, s, k) or 0.0
                for s in STAGE_NAMES) for k in OPS}
     res["syncs"] = sum(1 for s in prog.spans if s.name == program.SYNC)
     res["spans"] = len(prog.spans)
@@ -112,8 +82,6 @@ def program_part(run, prog) -> dict:
     plain = idle_by_name(run)
     named = idle_by_name(run, program.host_events(prog))
     waits = idle_by_name(run, program.host_events(prog, waits=True))
-    res["breakdown_with_program"] = sorted(
-        ([k, v] for k, v in named.items()), key=lambda kv: -kv[1])[:24]
     for k in OPS:
         codec = sum(v for n, v in plain.items()
                     if n == f"{k}: BlockCodec.{k}")
@@ -173,7 +141,6 @@ def main(argv=None) -> int:
     R.few_threads()
     from yardstick import cell as C
     from yardstick import program, spec
-    from yardstick import trace as T
     c = spec.load_cell(args.workload)
     import torch
     torch.set_num_threads(1)
@@ -189,17 +156,17 @@ def main(argv=None) -> int:
                       "seed": args.seed, "seconds": args.seconds,
                       "trace": args.trace,
                       "recorder": args.recorder or traced}), flush=True)
-    seen = keep_base_time(T)
-    rec = Recorder() if (args.recorder or traced) else None
+    # a traced window has the recorder on (run_window); an untraced one
+    # only here, around it, to read its cost
+    rec = program.Recorder() if args.recorder and not traced else None
     out = C.run_window(c, args.seed, args.seconds, traced, device, T_START,
                        faults=rec)
     run = out.run
     extra = None
-    if rec is not None:
-        run.program = program.Program(rec.rec.spans, rec.rec.anchor,
-                                      seen.get("base_ns"))
-        extra = program_part(run, run.program) if traced else \
-            {"spans": len(rec.rec.spans)}
+    if traced and run.program is not None:
+        extra = program_part(run, run.program)
+    elif rec is not None:
+        extra = {"spans": len(rec.recording.spans)}
     device_info = {"platform": "gpu",
                    "kind": torch.cuda.get_device_name(0),
                    "count": c.chips, "memory_peak_bytes": out.memory_peak}

@@ -36,10 +36,17 @@ def test_traced_line(tiny_root):
     assert set(res["device"]) == DEVICE_KEYS | {"busy_s", "window_s"}
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert all(len(v) <= 10 for v in res["breakdown"].values())
-    # on the CPU there is no device trace: only the span metrics read
+    # on the CPU there is no device trace: only the span metrics read,
+    # the benchmark's and the program's (its recorder is on when traced)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        per = json.load(f)["per_layer"]
+    program = {m["name"] for m in per if m["name"].split(".")[0] in (
+        "stage_ms_per_MiB", "syncs_per_MiB", "block0_share",
+        "api_ms_per_MiB", "read_ahead")}
+    assert len(program) == 20
     assert set(res["metrics"]) == {
         "codec_overlap.compress", "codec_ms_per_MiB.compress",
-        "codec_overlap.decompress", "codec_ms_per_MiB.decompress"}
+        "codec_overlap.decompress", "codec_ms_per_MiB.decompress"} | program
 
 
 def test_forbidden_modules_by_whole_top_level_name():

@@ -97,3 +97,9 @@ def test_chrome_trace_parse():
     assert [d[2] for d in tr.device] == ["rans_encode_kernel", "Memcpy"]
     assert tr.ops == {0: (0.0, 30.0)}
     assert tr.host == [(2.0, 5.0, "aten::add")]
+    assert tr.base_ns is None
+    # the clock's base, which puts the program's spans on the trace's clock
+    based = trace.parse({"traceEvents": ev,
+                         "baseTimeNanoseconds": 1700000000123456789})
+    assert based.base_ns == 1700000000123456789
+    assert based.device == tr.device and based.host == tr.host

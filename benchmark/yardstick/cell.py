@@ -12,6 +12,11 @@ archive or the FASTQ text in memory).  The window runs whole operations
 Set-up warms what the window runs: a round trip of the data's first
 block, at the configuration's block size (the kernels are built before,
 by nvcc, so no shape of the window compiles inside it).
+
+A traced run also turns the program's own recorder on just before the
+window and off as it closes, inside the profiler session, and keeps its
+spans and counts as the run's `program` (yardstick/program.py); an
+untraced run never turns it on.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from . import check, gen, hooks, record, trace, work
+from . import check, gen, hooks, program, record, trace, work
 from .record import Op, Run
 from .spec import Cell
 
@@ -110,6 +115,7 @@ def run_window(cell: Cell, seed: int, seconds: float, traced: bool,
     session = trace.Session(side) if traced else None
     spans_cm = hooks.Spans() if traced else None
     calls_cm = hooks.KernelCalls(kernels, side) if traced else None
+    recorder = program.Recorder() if traced else None
     ops: List[Op] = []
     spans = []
     first_error = []
@@ -155,7 +161,7 @@ def run_window(cell: Cell, seed: int, seconds: float, traced: bool,
 
     with (faults or contextlib.nullcontext()):
         if traced:
-            with session, spans_cm as spans, calls_cm:
+            with session, spans_cm as spans, calls_cm, recorder:
                 window()
         else:
             window()
@@ -168,6 +174,8 @@ def run_window(cell: Cell, seed: int, seconds: float, traced: bool,
     out.run = Run(ops, spans, calls_cm.calls() if traced else [],
                   session.trace if traced else None,
                   _peaks(device) if traced and device.type == "cuda"
+                  else None,
+                  recorder.program(session.trace.base_ns) if traced
                   else None)
     if traced:
         for kernel in kernels:

@@ -1,23 +1,29 @@
-"""The program's own spans and sync count (dsrc_tpu_torch/utils/trace.py)
-in a run, and the arithmetic of the metrics that read them.
+"""The program's own spans and counts (dsrc_tpu_torch/utils/trace.py) in a
+run, and the arithmetic of the metrics that read them.
 
-A run's `program` (a Program, set by a window run with the program's
-recorder on: benchmark/stages.py) holds the recorder's spans, its clock
-anchor and the trace's baseTimeNanoseconds.  A run without one, or a
-program without a recorder, gives no metric: each reader returns None.
+A traced run (yardstick/cell.run_window) turns the program's recorder on
+just before its window and off as it closes, inside the profiler session,
+and keeps what it recorded as the run's `program` (a Program): the
+recorder's spans, its totals (the counts among them), its clock anchor and
+the trace's baseTimeNanoseconds.  An untraced run never turns it on.  A
+run without a program, or a program without spans, gives no metric: each
+reader returns None.
 
 The span names are the program's: op.compress / op.decompress (one a
-DsrcModule call), block (one a block job), codec.compress /
-codec.decompress (BlockCodec), below them the stages codec.stage,
-codec.tag, codec.model, codec.serialize and the leaf codec.sync (one read
-of device values by the host).  Nothing here needs a card.
+DsrcModule call), api.read / api.write / api.wait / api.analyze, block
+(one a block job), codec.compress / codec.decompress (BlockCodec), below
+them the stages codec.stage, codec.tag, codec.model, codec.serialize and
+the leaf codec.sync (one read of device values by the host).  Its counts
+(api.read_ahead, dna.<scheme>) live in the totals, by (call, name).  A
+reader of a new span or count is a file under metrics/ that calls these
+helpers.  Nothing here needs a card.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from .record import MIB, Run
+from .record import MIB, Op, Run
 
 STAGES = ("stage", "tag", "model", "sync", "serialize")
 SYNC = "codec.sync"
@@ -30,10 +36,35 @@ class Program:
     """spans: the recorder's spans (name, start_ns, end_ns, id, parent, op,
     block, tid, nbytes; perf_counter_ns); anchor: (perf_counter_ns,
     time_ns) read together when the recorder started; base_ns: the device
-    trace's baseTimeNanoseconds (None without a trace)."""
+    trace's baseTimeNanoseconds (None without a trace); totals: the
+    recorder's totals by (op, name), each with a `count` (the spans of
+    that name in the call, or what the program counted under it)."""
     spans: list
     anchor: Tuple[int, int]
     base_ns: Optional[int] = None
+    totals: dict = dataclasses.field(default_factory=dict)
+
+
+class Recorder:
+    """The program's recorder on, every span kept, for the length of a
+    `with` block; program(base_ns) then gives what it recorded."""
+
+    def __init__(self):
+        self.recording = None
+
+    def __enter__(self) -> "Recorder":
+        from dsrc_tpu_torch.utils import trace
+        trace.start(keep=True)
+        return self
+
+    def __exit__(self, *exc):
+        from dsrc_tpu_torch.utils import trace
+        self.recording = trace.stop()
+        return False
+
+    def program(self, base_ns: Optional[int]) -> Program:
+        rec = self.recording
+        return Program(rec.spans, rec.anchor, base_ns, dict(rec.totals))
 
 
 def of(run: Run) -> Optional[Program]:
@@ -133,6 +164,37 @@ def syncs_per_mib(run: Run, kind: str) -> Optional[float]:
     if not ops or mib <= 0:
         return None
     return sum(1 for s in spans if s.name == SYNC) / mib
+
+
+def span_ms_per_mib(run: Run, name: str, kind: str) -> Optional[float]:
+    """Summed ms of the program's spans named `name` (on every thread) in
+    the operations of this kind, a FASTQ MiB."""
+    prog = of(run)
+    if prog is None:
+        return None
+    spans, ops = _of_kind(run, prog, kind)
+    mib = sum(o.fastq_bytes for o in ops) / MIB
+    mine = [s for s in spans if s.name == name]
+    if not ops or not mine or mib <= 0:
+        return None
+    return sum(s.end_ns - s.start_ns for s in mine) / 1e6 / mib
+
+
+def call_counts(run: Run, name: str, kind: str
+                ) -> Optional[List[Tuple[int, Op]]]:
+    """The program's count `name` in each call matched to an operation of
+    this kind (op_of_calls, as the spans are), with that operation; 0 in a
+    call that did not count it.  None where no such call counted it."""
+    prog = of(run)
+    if prog is None:
+        return None
+    calls = op_of_calls(run, prog)
+    ops = {o.index: o for o in run.of_kind(kind)}
+    mine = sorted(c for c, i in calls.items() if i in ops)
+    if not any((c, name) in prog.totals for c in mine):
+        return None
+    return [(prog.totals[(c, name)].count if (c, name) in prog.totals
+             else 0, ops[calls[c]]) for c in mine]
 
 
 def block0_share(run: Run, kind: str) -> Optional[float]:

@@ -10,9 +10,12 @@ import bisect
 import dataclasses
 import math
 import statistics
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple
 
 from . import work
+
+if TYPE_CHECKING:
+    from .program import Program
 
 MIB = 1 << 20
 
@@ -59,19 +62,25 @@ class Trace:
     """The device trace of the window: device events (kernels, copies,
     sets) of the program as (start_us, end_us, name), sorted by start;
     each operation's window by its index; host events (start_us, end_us,
-    name), sorted by start, to say what the host was doing."""
+    name), sorted by start, to say what the host was doing; base_ns: the
+    Chrome trace's baseTimeNanoseconds (its clock is wall-clock us less
+    it), None where the trace gave none."""
     device: List[Tuple[float, float, str]]
     ops: Dict[int, Tuple[float, float]]
     host: List[Tuple[float, float, str]]
+    base_ns: Optional[int] = None
 
 
 @dataclasses.dataclass
 class Run:
+    """program: what the program's own recorder kept over the window (a
+    traced run's; yardstick/program.py), None in an untraced run."""
     ops: List[Op]
     spans: List[Span] = dataclasses.field(default_factory=list)
     calls: List[Call] = dataclasses.field(default_factory=list)
     trace: Optional[Trace] = None
     peaks: Optional[work.Peaks] = None
+    program: Optional["Program"] = None
 
     def of_kind(self, kind: str) -> List[Op]:
         return [o for o in self.ops if o.kind == kind and o.ok]
@@ -221,13 +230,18 @@ def trace_offset_us(run: Run) -> Optional[float]:
 def host_events(run: Run) -> List[Tuple[float, float, str]]:
     """What the host was doing, in the trace's clock: the trace's host
     events (torch operations on the calling thread; the profiler records
-    no other thread's) and the benchmark's BlockCodec spans (every
-    thread), sorted by start."""
+    no other thread's) and, on every thread, the program's own spans
+    (yardstick/program.py: api.read, codec.tag, ...) where the run has
+    them, else the benchmark's BlockCodec spans, sorted by start."""
+    from . import program
     tr = run.trace
-    off = trace_offset_us(run)
-    spans = [] if off is None else [
-        (s.start * 1e6 + off, s.end * 1e6 + off, f"BlockCodec.{s.kind}")
-        for s in run.spans]
+    prog = program.of(run)
+    spans = program.host_events(prog) if prog is not None else []
+    if not spans:
+        off = trace_offset_us(run)
+        spans = [] if off is None else [
+            (s.start * 1e6 + off, s.end * 1e6 + off, f"BlockCodec.{s.kind}")
+            for s in run.spans]
     return sorted(tr.host + spans)
 
 

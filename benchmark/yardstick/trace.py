@@ -2,11 +2,12 @@
 back from its Chrome trace.
 
 Every operation of the window runs inside a record_function range named
-"bench.op.<index>", which gives its window in the trace's clock.  The
-device events are the kernels, copies and sets on the card, but those on
-the benchmark's own side stream, where the kernel wrappers count the work
-of a call (yardstick/hooks.py): that stream is found by the spin kernel
-that the session launches on it first.
+"bench.op.<index>", which gives its window in the trace's clock; the
+trace's baseTimeNanoseconds is kept, to put the program's own spans on that
+clock (yardstick/program.py).  The device events are the kernels, copies
+and sets on the card, but those on the benchmark's own side stream, where
+the kernel wrappers count the work of a call (yardstick/hooks.py): that
+stream is found by the spin kernel that the session launches on it first.
 """
 from __future__ import annotations
 
@@ -74,6 +75,8 @@ def parse(chrome: dict) -> Trace:
     """A Trace from a Chrome trace's events (torch.profiler's export)."""
     events = chrome.get("traceEvents", chrome) if isinstance(chrome, dict) \
         else chrome
+    base = chrome.get("baseTimeNanoseconds") if isinstance(chrome, dict) \
+        else None
     side = {(e.get("pid"), e.get("tid")) for e in events
             if e.get("cat") == "kernel" and SIDE_MARK in e.get("name", "")}
     device, host, ops = [], [], {}
@@ -95,4 +98,4 @@ def parse(chrome: dict) -> Trace:
                 host.append((s, t, name))
     device.sort()
     host.sort()
-    return Trace(device, ops, host)
+    return Trace(device, ops, host, None if base is None else int(base))
